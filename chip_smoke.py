@@ -1,0 +1,543 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+Run from the repo root with no arguments: ``python3 chip_smoke.py``.  It
+imports only ``repro_torch`` (from ``src/`` beside this file) and:
+
+1. prints the card (``nvidia-smi --query-gpu=name,power.limit``);
+2. builds the CUDA exchange kernels from ``src/repro_torch/csrc``;
+3. holds every kernel against its plain PyTorch version on the card over
+   bits {4, 8} x q_norm {inf, 2} x K {1, 2, 8}, with a row count that is
+   not a multiple of any tile and with all-zero rows: payload indices and
+   packed bytes exactly equal for q = inf (for q = 2, exactly equal in
+   every row whose norm is bit-identical, else at most one level apart),
+   f32 outputs and norms within rtol 1e-6;
+4. drives the train step through the training entry point
+   (``repro_torch.launch.train.run``) at the full width of tinyllama-1.1b
+   (22 layers, d_model 2048, 32 heads / 4 kv heads, d_ff 5632, vocab
+   32000, bf16 layer weights, random from a seed): 3 qgenx ``de`` steps
+   with the int8 two_phase exchange, then 2 ``optda`` steps with the int4
+   gather exchange, batch 4 x seq 512 on the one card (K = 1).  Launch
+   counts are reset just before and read just after; every kernel must
+   have launched, every loss be finite and ``wire_bytes`` equal the
+   analytic buffer sizes.  A reduced-size run on the card is then held
+   against the same run on the CPU (same weights, exact exchange);
+5. runs each kernel at its main-path shape (the flat exchange buffer of
+   tinyllama-1.1b, 2,148,532 rows x 512): kernels 1, 2, 3 in int8 as
+   two_phase chains them, kernels 1 and 4 in int4 as gather does.  Each
+   output is held against the plain version's on the same inputs (payload
+   bytes exactly equal, f32 within rtol 1e-6), and each kernel is timed
+   beside its bound and its plain version.  Kernel 1 has a row per width.
+
+The line before the last is ``{"kernels": [...]}``, the last
+``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
+either is printed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+KERNEL_SOURCE = "src/repro_torch/csrc/exchange_kernels.cu"
+REPLACES = {
+    "quantize_blocks": "src/repro/kernels/quantize.py:73",
+    "dequant_reduce_requantize_blocks": "src/repro/kernels/dequant_reduce.py:136",
+    "dequantize_blocks": "src/repro/kernels/dequantize.py:48",
+    "dequant_reduce_blocks": "src/repro/kernels/dequant_reduce.py:73",
+}
+
+
+def exchanged_coords(cfg) -> int:
+    """Coordinates of the gradient tree (``param_count`` leaves out the
+    norm scales: two per layer and the final one)."""
+    return cfg.param_count() + (2 * cfg.num_layers + 1) * cfg.d_model
+
+
+def fail(msg: str) -> None:
+    print(f"[chip_smoke] FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(f"[chip_smoke] {msg}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernel parity
+# ---------------------------------------------------------------------------
+
+
+def _rand_payload(torch, gen, K, nb, bucket, s, bits, zero_rows, dev):
+    idx = torch.randint(-(s + 1), s + 2, (K, nb, bucket), generator=gen, device=dev,
+                        dtype=torch.int32)
+    norms = torch.rand((K, nb), generator=gen, device=dev) * 3 + 0.1
+    idx[:, zero_rows] = 0
+    norms[:, zero_rows] = 0.0
+    from repro_torch.kernels.ref import pack_payload
+
+    payload = torch.stack([pack_payload(idx[k], bits) for k in range(K)])
+    return payload, norms
+
+
+def _check_indices(torch, name, got, want, bits, q_is_inf, norms_got, norms_want):
+    from repro_torch.kernels.ref import unpack_payload
+
+    if q_is_inf:
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            fail(f"{name}: {bad} payload bytes differ from the plain version")
+        return
+    gi = unpack_payload(got, bits)
+    wi = unpack_payload(want, bits)
+    same_rows = norms_got == norms_want
+    if not torch.equal(gi[same_rows], wi[same_rows]):
+        fail(f"{name}: indices differ in rows whose L2 norm is bit-identical")
+    if int((gi - wi).abs().max()) > 1:
+        fail(f"{name}: indices more than one level apart")
+
+
+def _close(torch, name, got, want, rtol=1e-6):
+    if not torch.allclose(got, want, rtol=rtol, atol=0.0):
+        err = float((got - want).abs().max())
+        fail(f"{name}: f32 outputs differ beyond rtol {rtol} (max abs err {err:.3e})")
+    return float((got - want).abs().max())
+
+
+def kernel_parity(torch) -> dict:
+    """Every kernel vs its plain version on the card; returns the max abs
+    error of each kernel's f32 output (dequantized for the payload
+    kernels) over all cases."""
+    from repro_torch.core.quantization import uniform_levels
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dequant_reduce import (
+        dequant_reduce_blocks,
+        dequant_reduce_requantize_blocks,
+    )
+    from repro_torch.kernels.dequantize import dequantize_blocks
+    from repro_torch.kernels.quantize import quantize_blocks
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+    errs = {k: 0.0 for k in REPLACES}
+    nb = 37  # not a multiple of any tile
+    zero_rows = [0, 17]
+    cases = 0
+    for bits in (8, 4):
+        s = 15 if bits == 8 else 5
+        ns = s + 2
+        lv = uniform_levels(s, dev)
+        buckets = (512, 130) + ((1023,) if bits == 8 else ())
+        for bucket in buckets:
+            for q_is_inf in (True, False):
+                tag = f"bits={bits} bucket={bucket} q={'inf' if q_is_inf else 2}"
+                x = torch.randn((nb, bucket), generator=gen, device=dev) * 3
+                x[zero_rows] = 0.0
+                r = torch.rand((nb, bucket), generator=gen, device=dev)
+                pk, nk = quantize_blocks(x, r, lv, num_symbols=ns, q_is_inf=q_is_inf,
+                                         bits=bits)
+                pp, npl = ref.quantize_blocks_plain(x, r, lv, num_symbols=ns,
+                                                    q_is_inf=q_is_inf, bits=bits)
+                torch.cuda.synchronize()
+                _check_indices(torch, f"quantize {tag}", pk, pp, bits, q_is_inf, nk, npl)
+                _close(torch, f"quantize norms {tag}", nk, npl)
+                if q_is_inf:  # equal payloads and norms: the values agree exactly
+                    errs["quantize_blocks"] = max(errs["quantize_blocks"], _close(
+                        torch, f"quantize deq {tag}",
+                        ref.dequantize_blocks_plain(pk, nk, lv, bits=bits),
+                        ref.dequantize_blocks_plain(pp, npl, lv, bits=bits)))
+                dk = dequantize_blocks(pk, nk, lv, num_symbols=ns, bits=bits)
+                dp = ref.dequantize_blocks_plain(pk, nk, lv, bits=bits)
+                errs["dequantize_blocks"] = max(errs["dequantize_blocks"], _close(
+                    torch, f"dequantize {tag}", dk, dp))
+                cases += 2
+                for K in (1, 2, 8):
+                    ktag = f"{tag} K={K}"
+                    P, N = _rand_payload(torch, gen, K, nb, bucket, s, bits, zero_rows, dev)
+                    mk = dequant_reduce_blocks(P, N, lv, num_symbols=ns, num_workers=K,
+                                               bits=bits)
+                    mp = ref.dequant_reduce_blocks_plain(P, N, lv, bits=bits)
+                    errs["dequant_reduce_blocks"] = max(errs["dequant_reduce_blocks"],
+                                                        _close(torch, f"dequant_reduce {ktag}",
+                                                               mk, mp))
+                    r2 = torch.rand((nb, bucket), generator=gen, device=dev)
+                    ok_, onk = dequant_reduce_requantize_blocks(
+                        P, N, lv, r2, num_symbols=ns, num_workers=K, q_is_inf=q_is_inf,
+                        bits=bits)
+                    op_, onp = ref.dequant_reduce_requantize_blocks_plain(
+                        P, N, lv, r2, num_symbols=ns, q_is_inf=q_is_inf, bits=bits)
+                    torch.cuda.synchronize()
+                    _check_indices(torch, f"requantize {ktag}", ok_, op_, bits, q_is_inf,
+                                   onk, onp)
+                    _close(torch, f"requantize norms {ktag}", onk, onp)
+                    if q_is_inf:
+                        errs["dequant_reduce_requantize_blocks"] = max(
+                            errs["dequant_reduce_requantize_blocks"], _close(
+                                torch, f"requantize deq {ktag}",
+                                ref.dequantize_blocks_plain(ok_, onk, lv, bits=bits),
+                                ref.dequantize_blocks_plain(op_, onp, lv, bits=bits)))
+                    cases += 2
+    # non-finite rows: a NaN / inf coordinate must reach the norm (and so
+    # every dequantized value of its row) as in the plain version
+    for q_is_inf in (True, False):
+        s, bits = 15, 8
+        lv = uniform_levels(s, dev)
+        x = torch.randn((nb, 512), generator=gen, device=dev)
+        x[1, 3], x[6, 200] = float("nan"), float("-inf")
+        r = torch.rand((nb, 512), generator=gen, device=dev)
+        pk, nk = quantize_blocks(x, r, lv, num_symbols=s + 2, q_is_inf=q_is_inf, bits=bits)
+        pp, npl = ref.quantize_blocks_plain(x, r, lv, num_symbols=s + 2, q_is_inf=q_is_inf,
+                                            bits=bits)
+        dk = dequantize_blocks(pk, nk, lv, num_symbols=s + 2, bits=bits)
+        dp = ref.dequantize_blocks_plain(pp, npl, lv, bits=bits)
+        torch.cuda.synchronize()
+        tag = f"non-finite rows q={'inf' if q_is_inf else 2}"
+        _check_indices(torch, tag, pk, pp, bits, q_is_inf, nk, npl)
+        if not (torch.equal(nk.isnan(), npl.isnan()) and torch.equal(dk.isnan(), dp.isnan())
+                and bool(nk[1].isnan())):
+            fail(f"{tag}: NaN does not reach the same norms and values as the plain version")
+        cases += 2
+    log(f"phase 3: {cases} kernel-vs-plain cases agree; max abs err {errs}")
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the train path
+# ---------------------------------------------------------------------------
+
+
+def _train_args(**kw):
+    from repro_torch.launch.train import parser
+
+    argv = []
+    for k, v in kw.items():
+        flag = "--" + k.replace("_", "-")
+        argv += [flag] if v is True else [flag, str(v)]
+    return parser().parse_args(argv)
+
+
+def train_path(torch, batch: int, seq: int) -> dict:
+    """The main path at full width; returns each kernel's launch counts by
+    bit width: {8: the int8 two_phase run's, 4: the int4 gather run's}."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.exchange import exchange_buffer_bytes
+    from repro_torch.core.quantization import QuantConfig
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.train import run
+
+    runs = [
+        dict(method="de", compression="int8", compress_mode="two_phase", steps=3),
+        dict(method="optda", compression="int4", compress_mode="gather", steps=2),
+    ]
+    n_live = exchanged_coords(get_config("tinyllama-1.1b"))
+    by_bits = {}
+    cuda.reset_launch_counts()
+    for spec in runs:
+        before = cuda.launch_counts()
+        out = run(
+            _train_args(arch="tinyllama-1.1b", dtype="bfloat16", batch=batch, seq=seq,
+                        device="cuda", **spec),
+            log=lambda m: log(f"  {m}"))
+        after = cuda.launch_counts()
+        bits = 8 if spec["compression"] == "int8" else 4
+        quant = QuantConfig(num_levels=15 if bits == 8 else 5, bits=bits, bucket_size=512)
+        calls = 2 if spec["method"] == "de" else 1
+        want_wire = calls * sum(exchange_buffer_bytes(n_live, 1, quant,
+                                                      spec["compress_mode"]).values())
+        if not all(math.isfinite(v) for v in out["loss"]):
+            fail(f"non-finite loss in {spec}: {out['loss']}")
+        if any(w != want_wire for w in out["wire_bytes"]):
+            fail(f"wire_bytes {out['wire_bytes']} != analytic {want_wire} in {spec}")
+        delta = {k: after[k] - before[k] for k in after}
+        by_bits[bits] = delta
+        log(f"  {spec['method']} {spec['compression']} {spec['compress_mode']}: "
+            f"loss={out['loss']} wire_bytes={out['wire_bytes'][0]:.0f} "
+            f"step_s={out['step_s']} launches={delta}")
+    counts = cuda.launch_counts()
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        fail(f"kernels never launched on the main path: {missing}")
+    log(f"phase 4: main-path launches {counts}")
+    return by_bits
+
+
+class _NumpyNoise:
+    """The same uniform draws on any device, from one numpy stream."""
+
+    def __init__(self, seed):
+        import numpy as np
+
+        self.rng = np.random.RandomState(seed)
+
+    def uniform(self, shape, device):
+        import torch
+
+        a = self.rng.random_sample(tuple(shape)).astype("float32")
+        return torch.from_numpy(a).to(device)
+
+
+def card_vs_cpu(torch) -> None:
+    """Reduced tinyllama, same weights and noise: 2 de steps on the card
+    (CUDA kernels) vs on the CPU (plain versions), exact exchange and int8
+    two_phase."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.exchange import ExchangeConfig, make_exchange
+    from repro_torch.core.quantization import QuantConfig
+    from repro_torch.data.pipeline import make_pipeline, to_device
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import build
+    from repro_torch.optim import qgenx as qgenx_opt
+    from repro_torch.optim.optimizers import OptimizerConfig
+
+    cfg = get_config("tinyllama-1.1b").reduced()
+    base = build(cfg, seed=0, device="cpu")
+    batch_np = next(make_pipeline(cfg.vocab_size, 4, 32, seed=0))
+    opt_cfg = OptimizerConfig(name="qgenx", gamma_scale=0.02, method="de")
+    for ex_cfg, rtol in ((ExchangeConfig(compressor="none"), 1e-4),
+                         (ExchangeConfig(compressor="qgenx", mode="two_phase",
+                                         quant=QuantConfig(num_levels=15, bits=8,
+                                                           bucket_size=512)), 1e-3)):
+        results = []
+        for dev in ("cpu", "cuda"):
+            model = copy.deepcopy(base).to(dev)
+            ex = make_exchange(ex_cfg)
+            step = make_train_step(model, opt_cfg, ex)
+            opt_state = qgenx_opt.init_qgenx_state(opt_cfg, model.param_leaves())
+            ex_state = ex.init_state(dev)
+            noise = _NumpyNoise(7)
+            losses = []
+            for _ in range(2):
+                opt_state, ex_state, m = step(opt_state, ex_state,
+                                              to_device(batch_np, dev), noise)
+                losses.append(float(m["loss"]))
+            results.append((np.array(losses), [p.detach().cpu() for p in model.param_leaves()]))
+        (lc, pc), (lg, pg) = results
+        if not np.allclose(lg, lc, rtol=rtol, atol=0):
+            fail(f"card vs cpu loss ({ex_cfg.compressor}): {lg} vs {lc}")
+        worst = max(float((a - b).norm() / b.norm()) for a, b in zip(pg, pc))
+        if worst > rtol:
+            fail(f"card vs cpu params ({ex_cfg.compressor}): rel err {worst:.3e}")
+        log(f"  card vs cpu ({ex_cfg.compressor}): losses {lg} vs {lc}, "
+            f"worst param rel err {worst:.3e}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: kernel times at the main-path shapes
+# ---------------------------------------------------------------------------
+
+
+def _time_ms(torch, fn, reps: int):
+    """(ms per call, the last call's output)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps - 1):
+        fn()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+def _deq_err(torch, name, got, want, levels, bits, chunk=1 << 18):
+    """Max abs difference of two (payload, norms) pairs once dequantized by
+    the plain version, in row chunks (a full buffer dequantized twice would
+    take 8.8 GB); fails unless the payloads agree as ``_check_indices``
+    requires (q = inf: byte for byte)."""
+    from repro_torch.kernels import ref
+
+    (pg, ng), (pw, nw) = got, want
+    _check_indices(torch, name, pg, pw, bits, True, ng, nw)
+    _close(torch, f"{name} norms", ng, nw)
+    err = 0.0
+    for i in range(0, pg.shape[0], chunk):
+        sl = slice(i, i + chunk)
+        err = max(err, _close(torch, f"{name} dequantized",
+                              ref.dequantize_blocks_plain(pg[sl], ng[sl], levels, bits=bits),
+                              ref.dequantize_blocks_plain(pw[sl], nw[sl], levels, bits=bits)))
+    return err
+
+
+def kernel_times(torch, launches: dict, errs: dict) -> list:
+    """Each kernel at the shape the main path gives it: the tinyllama-1.1b
+    flat exchange buffer (K = 1, bucket 512, q = inf); kernels 1-3 as the
+    int8 two_phase exchange runs them (kernel 2 and 3 on kernel 1's and
+    kernel 2's outputs), kernels 1 and 4 as the int4 gather exchange runs
+    them.  Each kernel's last timed output is held against its plain
+    version's on the same inputs (payload bytes exactly equal, f32 within
+    rtol 1e-6); ``max_abs_err`` is the larger of this and phase 3's."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantization import uniform_levels
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dequant_reduce import (
+        dequant_reduce_blocks,
+        dequant_reduce_requantize_blocks,
+    )
+    from repro_torch.kernels.dequantize import dequantize_blocks
+    from repro_torch.kernels.quantize import quantize_blocks
+
+    dev = torch.device("cuda")
+    bucket = 512
+    n_live = exchanged_coords(get_config("tinyllama-1.1b"))
+    rows = -(-n_live // bucket)
+    n = rows * bucket
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(99)
+    out = []
+
+    def entry(name, bits, ms, plain_ms, err, nbytes, ops):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / F32_OPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        kernel = name.split("/")[0]
+        row = {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+               "replaces": REPLACES[kernel], "launches": launches[bits][kernel],
+               "max_abs_err": max(err, errs[kernel]), "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": None}
+        log(f"  {name} [{rows} x {bucket}, int{bits}]: {ms:.3f} ms (bound {bound:.3f} ms by "
+            f"{row['bound_by']}, {nbytes / 1e9:.2f} GB; plain {plain_ms:.3f} ms); "
+            f"vs plain: max abs err {err:.3e} here, {errs[kernel]:.3e} in phase 3")
+        out.append(row)
+
+    def quantize(bits, s, lv):
+        x = torch.randn((rows, bucket), generator=gen, device=dev)
+        r = torch.rand((rows, bucket), generator=gen, device=dev)
+        ms, got = _time_ms(torch, lambda: quantize_blocks(
+            x, r, lv, num_symbols=s + 2, q_is_inf=True, bits=bits), 10)
+        plain, want = _time_ms(torch, lambda: ref.quantize_blocks_plain(
+            x, r, lv, num_symbols=s + 2, q_is_inf=True, bits=bits), 2)
+        del x, r
+        torch.cuda.empty_cache()
+        err = _deq_err(torch, f"quantize int{bits} main-path shape", got, want, lv, bits)
+        entry(f"quantize_blocks/int{bits}", bits, ms, plain, err,
+              4 * n + 4 * n + n * bits // 8 + 4 * rows, n * (10 + 2 * s))
+        return got
+
+    # int8 two_phase (s = 15): kernel 1 -> kernel 2 -> kernel 3
+    s, bits = 15, 8
+    lv = uniform_levels(s, dev)
+    payload, norms = quantize(bits, s, lv)
+    P, N = payload.unsqueeze(0), norms.unsqueeze(0)
+    r2 = torch.rand((rows, bucket), generator=gen, device=dev)  # the re-quantize draw
+    ms, got = _time_ms(torch, lambda: dequant_reduce_requantize_blocks(
+        P, N, lv, r2, num_symbols=s + 2, num_workers=1, q_is_inf=True, bits=bits), 10)
+    plain, want = _time_ms(torch, lambda: ref.dequant_reduce_requantize_blocks_plain(
+        P, N, lv, r2, num_symbols=s + 2, q_is_inf=True, bits=bits), 2)
+    del r2, P, N, payload, norms
+    torch.cuda.empty_cache()
+    err = _deq_err(torch, "dequant_reduce_requantize main-path shape", got, want, lv, bits)
+    entry("dequant_reduce_requantize_blocks", bits, ms, plain, err,
+          n + 4 * rows + 4 * n + n + 4 * rows, n * (14 + 2 * s))
+    del want
+    payload, norms = got
+    ms, got = _time_ms(torch, lambda: dequantize_blocks(
+        payload, norms, lv, num_symbols=s + 2, bits=bits), 10)
+    plain, want = _time_ms(torch, lambda: ref.dequantize_blocks_plain(
+        payload, norms, lv, bits=bits), 2)
+    err = _close(torch, "dequantize main-path shape", got, want)
+    entry("dequantize_blocks", bits, ms, plain, err, n + 4 * rows + 4 * n, 3 * n)
+    del payload, norms, got, want
+    torch.cuda.empty_cache()
+
+    # int4 gather (s = 5): kernel 1 -> kernel 4
+    s, bits = 5, 4
+    lv = uniform_levels(s, dev)
+    payload, norms = quantize(bits, s, lv)
+    P, N = payload.unsqueeze(0), norms.unsqueeze(0)
+    ms, got = _time_ms(torch, lambda: dequant_reduce_blocks(
+        P, N, lv, num_symbols=s + 2, num_workers=1, bits=bits), 10)
+    plain, want = _time_ms(torch, lambda: ref.dequant_reduce_blocks_plain(
+        P, N, lv, bits=bits), 2)
+    err = _close(torch, "dequant_reduce main-path shape", got, want)
+    entry("dequant_reduce_blocks", bits, ms, plain, err, n // 2 + 4 * rows + 4 * n, 4 * n)
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--skip-train", action="store_true",
+                    help="debugging: phases 1-3 only (prints no result)")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke test needs a GPU")
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "src"))
+    try:
+        import repro_torch  # noqa: F401
+    except ImportError as e:
+        fail(f"the port is not beside this script ({e})")
+    from repro_torch.kernels import cuda
+
+    # phase 1: the card
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr}")
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # phase 2: build
+    t0 = time.perf_counter()
+    lib = cuda.build()
+    cuda.library()
+    log(f"phase 2: built {lib.name} in {time.perf_counter() - t0:.1f} s")
+    for line in cuda.build_log().splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    # phase 3: kernel parity on the card
+    t0 = time.perf_counter()
+    errs = kernel_parity(torch)
+    log(f"phase 3 took {time.perf_counter() - t0:.1f} s")
+    if args.skip_train:
+        log("--skip-train: stopping after phase 3")
+        sys.exit(4)
+
+    # phase 4: the train path at full width, then card vs cpu at small size
+    t0 = time.perf_counter()
+    launches = train_path(torch, args.batch, args.seq)
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    card_vs_cpu(torch)
+    log(f"phase 4 took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 5: kernel times at the main-path shapes
+    t0 = time.perf_counter()
+    rows = kernel_times(torch, launches, errs)
+    log(f"phase 5 took {time.perf_counter() - t0:.1f} s")
+
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+
+
+if __name__ == "__main__":
+    main()

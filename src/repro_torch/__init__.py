@@ -1,0 +1,12 @@
+"""PyTorch/CUDA port of the Q-GenX system (the JAX package ``repro`` is the
+reference).
+
+Layout mirrors ``src/repro/`` so each module's counterpart is easy to
+find: ``configs/``, ``core/`` (quantization, exchange plan, exchange,
+method algebra), ``kernels/`` (hand-written CUDA kernels for the exchange,
+each beside its plain PyTorch version), ``optim/``, ``models/``,
+``data/`` and ``launch/``.  The package imports torch and numpy only.
+
+Entry points run on ``cuda`` unless the caller asks for ``cpu``; asking
+for ``cuda`` without a GPU raises (:func:`repro_torch.device.resolve_device`).
+"""

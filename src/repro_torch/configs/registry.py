@@ -1,0 +1,16 @@
+"""--arch id -> ModelConfig registry (the architectures ported so far)."""
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig
+
+ARCHS = {
+    "tinyllama-1.1b": "tinyllama_1_1b",
+}
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in ARCHS:
+        raise KeyError(f"unknown or not yet ported arch {arch!r}; "
+                       f"available: {sorted(ARCHS)}")
+    return importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}").CONFIG

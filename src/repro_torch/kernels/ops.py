@@ -1,0 +1,48 @@
+"""Flat-vector wrappers around kernels 1 and 3.
+
+Port of ``repro/kernels/ops.py`` (``quantize_pallas`` /
+``dequantize_pallas``): pad a flat vector to whole buckets, quantize it
+with :func:`repro_torch.kernels.quantize.quantize_blocks`, and invert with
+:func:`repro_torch.kernels.dequantize.dequantize_blocks`.  The payload is
+the in-kernel packed buffer in 4-bit mode.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.quantization import QuantConfig, pad_to_buckets
+from repro_torch.kernels.dequantize import dequantize_blocks
+from repro_torch.kernels.quantize import quantize_blocks
+
+
+@dataclasses.dataclass
+class Quantized:
+    """payload int8 [nb * P]; norms f32 [nb]; n the unpadded length."""
+
+    payload: torch.Tensor
+    norms: torch.Tensor
+    n: int
+
+    def wire_bytes(self) -> int:
+        return int(self.payload.numel() * self.payload.element_size()
+                   + self.norms.numel() * 4)
+
+
+def quantize_flat(v: torch.Tensor, levels: torch.Tensor, noise, cfg: QuantConfig) -> Quantized:
+    """Quantize a flat vector; ``noise`` is a noise source
+    (:mod:`repro_torch.core.noise`) asked for one [nb, bucket] draw."""
+    x2d, n = pad_to_buckets(v.reshape(-1).float(), cfg.bucket_size)
+    r = noise.uniform(x2d.shape, x2d.device)
+    idx, norms = quantize_blocks(x2d, r, levels, num_symbols=cfg.num_symbols,
+                                 q_is_inf=cfg.q_is_inf, bits=cfg.bits)
+    return Quantized(payload=idx.reshape(-1), norms=norms, n=n)
+
+
+def dequantize_flat(qt: Quantized, levels: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
+    pcols = cfg.bucket_size if cfg.bits == 8 else cfg.bucket_size // 2
+    out = dequantize_blocks(qt.payload.reshape(-1, pcols), qt.norms, levels,
+                            num_symbols=cfg.num_symbols, bits=cfg.bits)
+    return out.reshape(-1)[: qt.n]

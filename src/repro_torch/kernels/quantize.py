@@ -1,0 +1,61 @@
+"""Kernel 1: unbiased bucketed quantization (Definition 1), hand-written in
+CUDA for Hopper.
+
+Replaces ``repro/kernels/quantize.py::quantize_blocks`` (Pallas body
+``_quantize_kernel``): per bucket row, the L^inf or L^2 norm,
+``u = clip(|x| / norm, 0, 1)``, the level bracket by compare-accumulate
+over the s interior levels, stochastic rounding ``r < xi`` against the
+host noise, and the signed index as int8 or packed two per byte in the
+kernel (the buffer it writes is the wire payload).
+
+Bound on the H100: device-memory traffic.  It reads x and the noise (4 B
+each per coordinate) and writes 1 B (int8) or 0.5 B (int4) per coordinate
+plus 4 B per row; at the tinyllama-1.1b exchange buffer (~1.1e9
+coordinates) that is ~9.9 GB, ~3 ms at 3.35 TB/s.  The design
+(``csrc/exchange_kernels.cu::quantize_kernel``) gives each bucket row one
+thread block, reads x and the noise once with 16-byte loads (the norm pass
+re-reads the row from L1/L2, not HBM), keeps the level table in shared
+memory and writes the payload once.
+
+CPU tensors go to the plain version :func:`quantize_blocks_plain` (same
+arithmetic, bit-identical); CUDA tensors launch the kernel or raise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import cuda
+from repro_torch.kernels.ref import quantize_blocks_plain  # noqa: F401  (plain version)
+
+
+def quantize_blocks(x2d: torch.Tensor, noise: torch.Tensor, levels: torch.Tensor, *,
+                    num_symbols: int, q_is_inf: bool, bits: int = 8):
+    """Quantize [nb, bucket] -> (payload [nb, P] int8, norms [nb] f32).
+
+    P = bucket (``bits=8``) or bucket // 2 (``bits=4``, packed in-kernel).
+    ``noise`` is the [nb, bucket] uniform [0, 1) rounding noise.
+    """
+    nb, bucket = x2d.shape
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    if bits == 4 and bucket % 2:
+        raise ValueError("4-bit packing needs an even bucket size")
+    if tuple(noise.shape) != (nb, bucket):
+        raise ValueError(f"noise shape {tuple(noise.shape)} != {(nb, bucket)}")
+    if levels.shape != (num_symbols,):
+        raise ValueError(f"levels shape {tuple(levels.shape)} != ({num_symbols},)")
+    if x2d.device.type != "cuda":
+        return quantize_blocks_plain(x2d, noise, levels, num_symbols=num_symbols,
+                                     q_is_inf=q_is_inf, bits=bits)
+    dev = x2d.device
+    x = cuda.prepare(x2d, torch.float32, dev)
+    r = cuda.prepare(noise, torch.float32, dev)
+    lv = cuda.prepare(levels, torch.float32, dev)
+    out = torch.empty((nb, bucket if bits == 8 else bucket // 2), dtype=torch.int8,
+                      device=dev)
+    norms = torch.empty((nb,), dtype=torch.float32, device=dev)
+    cuda.call("qx_quantize", "quantize_blocks", dev, x.data_ptr(), r.data_ptr(),
+              lv.data_ptr(), num_symbols, nb, bucket, int(q_is_inf), bits,
+              out.data_ptr(), norms.data_ptr())
+    return out, norms

@@ -1,0 +1,130 @@
+"""Plain PyTorch versions of the exchange kernels' row math.
+
+Port of ``repro/kernels/common.py`` (``norm_rows``, ``quant_rows``,
+``dequant_rows``, ``pack4_rows``, ``unpack4_rows``) and of the K-mean
+``_mean_rows`` of ``repro/kernels/dequant_reduce.py``.  These follow the
+Pallas kernels' arithmetic, not ``repro/kernels/ref.py``'s: the level
+bracket is found by compare-accumulate over the interior levels and the
+K-mean is ``acc * (1/K)`` (not ``mean``) — the two differ in ulps (C2 in
+ROADMAP.md), and these functions equal the Pallas kernels bit for bit.
+
+Each ``*_blocks_plain`` function is the plain version of one CUDA kernel
+in :mod:`repro_torch.kernels`: the wrapper there runs it for CPU tensors,
+and ``chip_smoke.py`` holds the kernel against it on the card.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def inv_workers(num_workers: int) -> float:
+    """``1/K`` rounded to f32, as the reference's ``acc * (1.0 / K)``."""
+    return float(np.float32(1.0 / num_workers))
+
+
+def norm_rows(x: torch.Tensor, q_is_inf: bool) -> torch.Tensor:
+    """Per-row L^inf or L^2 norm of a [rows, bucket] f32 tile."""
+    if q_is_inf:
+        return x.abs().amax(dim=1)
+    return torch.sqrt((x * x).sum(dim=1))
+
+
+def pack4_rows(signed_idx: torch.Tensor) -> torch.Tensor:
+    """[rows, bucket] int32 in [-7, 7] -> [rows, bucket // 2] int8 with
+    byte = (a & 0xF) | ((b & 0xF) << 4) for column pairs (2j, 2j + 1)."""
+    a = signed_idx[:, 0::2] & 0xF
+    b = signed_idx[:, 1::2] & 0xF
+    return (a | (b << 4)).to(torch.uint8).view(torch.int8)
+
+
+def unpack4_rows(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack4_rows`: [rows, P] int8 -> [rows, 2P] int32."""
+    u = packed.to(torch.int32) & 0xFF
+    a = u & 0xF
+    b = (u >> 4) & 0xF
+    a = torch.where(a >= 8, a - 16, a)
+    b = torch.where(b >= 8, b - 16, b)
+    rows, half = packed.shape
+    return torch.stack([a, b], dim=-1).reshape(rows, 2 * half)
+
+
+def dequant_rows(signed_idx: torch.Tensor, lv: torch.Tensor,
+                 norms: torch.Tensor) -> torch.Tensor:
+    """DEQ: signed int32 indices [rows, bucket] -> f32 values
+    ``levels[|idx|] * sign * norm``."""
+    vals = lv[signed_idx.abs()]
+    sign = torch.where(signed_idx < 0, -1.0, 1.0)
+    return vals * sign * norms[:, None]
+
+
+def quant_rows(x: torch.Tensor, lv: torch.Tensor, r: torch.Tensor,
+               num_symbols: int, q_is_inf: bool):
+    """Q: f32 [rows, bucket] -> (signed int32 indices, f32 row norms).
+
+    Row norm, ``u = clip(|x| / norm, 0, 1)`` (norm 0 -> 1), bracket
+    ``tau = #{1 <= j <= s : levels[j] <= u}``, stochastic rounding
+    ``up = r < (u - lo) / (hi - lo)`` against the uniform noise ``r``.
+    """
+    norms = norm_rows(x, q_is_inf)
+    safe = torch.where(norms > 0, norms, torch.ones_like(norms))
+    u = torch.clamp(x.abs() / safe[:, None], 0.0, 1.0)
+    tau = torch.zeros(u.shape, dtype=torch.int32, device=x.device)
+    for j in range(1, num_symbols - 1):
+        tau += (u >= lv[j]).to(torch.int32)
+    lo = lv[tau]
+    hi = lv[tau + 1]
+    xi = (u - lo) / (hi - lo)
+    idx = tau + (r < xi).to(torch.int32)
+    return torch.where(x < 0, -idx, idx), norms
+
+
+def unpack_payload(payload: torch.Tensor, bits: int) -> torch.Tensor:
+    """Wire payload [rows, P] int8 -> signed int32 indices [rows, bucket]."""
+    return unpack4_rows(payload) if bits == 4 else payload.to(torch.int32)
+
+
+def pack_payload(signed: torch.Tensor, bits: int) -> torch.Tensor:
+    """Signed int32 indices [rows, bucket] -> wire payload [rows, P] int8."""
+    return pack4_rows(signed) if bits == 4 else signed.to(torch.int8)
+
+
+def mean_rows(idx: torch.Tensor, norms: torch.Tensor, lv: torch.Tensor,
+              bits: int) -> torch.Tensor:
+    """``mean_k DEQ(payload_k)`` as ``(sum_k term_k) * (1/K)``, summed in
+    worker order (idx [K, rows, P], norms [K, rows])."""
+    acc = None
+    for k in range(idx.shape[0]):
+        term = dequant_rows(unpack_payload(idx[k], bits), lv, norms[k])
+        acc = term if acc is None else acc + term
+    return acc * inv_workers(idx.shape[0])
+
+
+# -- the plain version of each kernel ---------------------------------------
+
+
+def quantize_blocks_plain(x2d, noise, levels, *, num_symbols, q_is_inf, bits):
+    """Plain version of kernel 1 (``quantize_blocks``)."""
+    signed, norms = quant_rows(x2d.float(), levels.float(), noise.float(),
+                               num_symbols, q_is_inf)
+    return pack_payload(signed, bits), norms
+
+
+def dequantize_blocks_plain(idx2d, norms, levels, *, bits):
+    """Plain version of kernel 3 (``dequantize_blocks``)."""
+    return dequant_rows(unpack_payload(idx2d, bits), levels.float(), norms.float())
+
+
+def dequant_reduce_blocks_plain(idx, norms, levels, *, bits):
+    """Plain version of kernel 4 (``dequant_reduce_blocks``)."""
+    return mean_rows(idx, norms.float(), levels.float(), bits)
+
+
+def dequant_reduce_requantize_blocks_plain(idx, norms, levels, noise, *,
+                                           num_symbols, q_is_inf, bits):
+    """Plain version of kernel 2 (``dequant_reduce_requantize_blocks``)."""
+    lv = levels.float()
+    reduced = mean_rows(idx, norms.float(), lv, bits)
+    signed, norms2 = quant_rows(reduced, lv, noise.float(), num_symbols, q_is_inf)
+    return pack_payload(signed, bits), norms2

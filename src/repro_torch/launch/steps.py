@@ -1,0 +1,98 @@
+"""The data-parallel Q-GenX train step (port of the qgenx ``de`` / ``optda``
+branches of ``repro/launch/steps.py::core_step``).
+
+One step on each worker:
+
+* ``de`` (Example 3.2): gradient at X_t -> exchange -> extrapolate to
+  X_{t+1/2} -> gradient there -> exchange -> commit (two exchanges).
+* ``optda`` (Example 3.3): extrapolate with the carried half-step mean
+  ``prev_half`` -> gradient at X_{t+1/2} -> exchange -> commit (one).
+
+The exchange is :class:`repro_torch.core.exchange.Exchange` (qgenx, or
+the exact ``none`` control); its quantize/dequantize steps run the CUDA
+kernels for CUDA tensors.  PyTorch runs eagerly, so the step mutates the
+model's parameters in place (X_{t+1/2} while the second gradient is taken,
+then X_{t+1}) and returns the new optimizer and exchange states with the
+``loss`` and ``wire_bytes`` metrics.  The guard, fault schedules,
+``sync_every`` and re-centering are not ported: ``make_train_step`` has
+no parameter for them.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.exchange import Exchange
+from repro_torch.core.methods import get_method
+from repro_torch.optim import qgenx as qgenx_opt
+from repro_torch.optim.optimizers import OptimizerConfig
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       aux: float = 0.0) -> torch.Tensor:
+    ll = F.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(ll, -1, labels[..., None])[..., 0]
+    return torch.mean(nll) + 0.01 * aux
+
+
+def make_loss_fn(model):
+    def loss_fn(batch: dict) -> torch.Tensor:
+        return cross_entropy_loss(model(batch["tokens"]), batch["labels"])
+
+    return loss_fn
+
+
+@torch.no_grad()
+def _assign(params: list, values: list) -> None:
+    for p, v in zip(params, values):
+        p.copy_(v)
+
+
+def make_train_step(model, opt_cfg: OptimizerConfig, exchange: Exchange):
+    """Returns ``step(opt_state, ex_state, batch, noise) -> (opt_state,
+    ex_state, metrics)`` for this worker's ``batch`` shard; ``noise`` is
+    this worker's noise source (:mod:`repro_torch.core.noise`)."""
+    method = get_method(opt_cfg.method)
+    if method.name not in ("de", "optda"):
+        raise ValueError(f"make_train_step supports qgenx methods 'de'/'optda', "
+                         f"got {opt_cfg.method!r}")
+    loss_fn = make_loss_fn(model)
+    params = model.param_leaves()
+    comm = exchange.comm
+    K = comm.size
+
+    def grad_at(batch):
+        loss = loss_fn(batch)
+        grads = torch.autograd.grad(loss, params)
+        return loss.detach(), list(grads)
+
+    def step(opt_state, ex_state, batch, noise):
+        st_in = ex_state
+        if method.uses_prev_half:
+            ghat1 = opt_state.prev_half
+            _assign(params, qgenx_opt.extrapolate(opt_cfg, params, opt_state, ghat1, K))
+            loss, g2 = grad_at(batch)
+            ghat2, ex_state = exchange.pmean_tree(g2, ex_state, noise)
+            sq = qgenx_opt.local_sq_diff(ghat1, g2)
+            prev_half = ghat2
+        else:
+            _, g1 = grad_at(batch)
+            ghat1, ex_state = exchange.pmean_tree(g1, ex_state, noise)
+            _assign(params, qgenx_opt.extrapolate(opt_cfg, params, opt_state, ghat1, K))
+            del ghat1
+            loss, g2 = grad_at(batch)
+            ghat2, ex_state = exchange.pmean_tree(g2, ex_state, noise)
+            sq = qgenx_opt.local_sq_diff(g1, g2)
+            del g1
+            prev_half = None
+        sq = comm.all_reduce_sum(sq)
+        new_params, opt_state = qgenx_opt.commit(opt_cfg, params, opt_state, ghat2, sq,
+                                                 K, prev_half=prev_half)
+        _assign(params, new_params)
+        loss = comm.all_reduce_mean(loss)
+        per_call = exchange.wire_bytes_tree(g2, K)
+        wire = per_call * (ex_state.step - st_in.step)
+        return opt_state, ex_state, {"loss": loss, "wire_bytes": wire}
+
+    return step

@@ -1,0 +1,130 @@
+"""The dense decoder-only transformer (port of the dense path of
+``repro/models/transformer.py``).
+
+Parameters keep the reference's pytree layout so the exchange sees the
+same leaves: every per-layer weight is stacked over layers (``[L, ...]``,
+the reference scans over that axis), under ``layers.0`` (one pattern
+period for a dense stack), beside ``embed`` and ``unembed`` (f32),
+``ln_f``.  :meth:`DenseDecoder.param_leaves` lists them in JAX flatten
+order.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.tree import path_sort_key
+from repro_torch.models import layers as L
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def model_dtype(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def _normal(gen, shape, scale, dtype, device):
+    return (torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+            * scale).to(dtype)
+
+
+class Norm(nn.Module):
+    def __init__(self, shape, device):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(shape, dtype=torch.float32, device=device))
+
+
+class Attention(nn.Module):
+    """Stacked q/k/v/o projections: wq [L, D, H, hd], wk/wv [L, D, KV, hd],
+    wo [L, H, hd, D]."""
+
+    def __init__(self, cfg: ModelConfig, n: int, gen, dtype, device):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        H, KV = cfg.num_heads, cfg.num_kv_heads
+        self.wq = nn.Parameter(_normal(gen, (n, d, H, hd), d**-0.5, dtype, device))
+        self.wk = nn.Parameter(_normal(gen, (n, d, KV, hd), d**-0.5, dtype, device))
+        self.wv = nn.Parameter(_normal(gen, (n, d, KV, hd), d**-0.5, dtype, device))
+        self.wo = nn.Parameter(_normal(gen, (n, H, hd, d), (H * hd) ** -0.5, dtype, device))
+
+
+class MLP(nn.Module):
+    """Stacked MLP weights: wi/wg [L, D, F], wo [L, F, D]."""
+
+    def __init__(self, cfg: ModelConfig, n: int, gen, dtype, device):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        self.wi = nn.Parameter(_normal(gen, (n, d, f), d**-0.5, dtype, device))
+        self.wo = nn.Parameter(_normal(gen, (n, f, d), f**-0.5, dtype, device))
+        if cfg.mlp_type in ("swiglu", "geglu"):
+            self.wg = nn.Parameter(_normal(gen, (n, d, f), d**-0.5, dtype, device))
+
+
+class LayerStack(nn.Module):
+    """All layers of one pattern period, stacked over the layer axis."""
+
+    def __init__(self, cfg: ModelConfig, n: int, gen, dtype, device):
+        super().__init__()
+        self.n = n
+        self.ln_attn = Norm((n, cfg.d_model), device)
+        self.attn = Attention(cfg, n, gen, dtype, device)
+        self.ln_mlp = Norm((n, cfg.d_model), device)
+        self.mlp = MLP(cfg, n, gen, dtype, device)
+
+    def layer(self, i: int) -> dict:
+        """Layer i's parameters as the reference's per-layer dict."""
+        return {
+            "ln_attn": {"scale": self.ln_attn.scale[i]},
+            "attn": {name: getattr(self.attn, name)[i] for name in ("wq", "wk", "wv", "wo")},
+            "ln_mlp": {"scale": self.ln_mlp.scale[i]},
+            "mlp": {name: p[i] for name, p in self.mlp.named_parameters()},
+        }
+
+
+def block_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    h = L.norm_apply(p["ln_attn"], x, cfg.norm_type)
+    x = x + L.attention_apply(p["attn"], cfg, h, positions)
+    h = L.norm_apply(p["ln_mlp"], x, cfg.norm_type)
+    return x + L.mlp_apply(p["mlp"], h, cfg.mlp_type)
+
+
+class DenseDecoder(nn.Module):
+    """tokens [B, S] -> logits [B, S, V] (f32)."""
+
+    def __init__(self, cfg: ModelConfig, *, device, seed: int = 0):
+        super().__init__()
+        device = torch.device(device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        dtype = model_dtype(cfg)
+        self.cfg = cfg
+        self.embed = nn.Parameter(_normal(gen, (cfg.vocab_size, cfg.d_model), 1.0,
+                                          torch.float32, device))
+        self.layers = nn.ModuleList([LayerStack(cfg, cfg.num_layers, gen, dtype, device)])
+        self.ln_f = Norm((cfg.d_model,), device)
+        if not cfg.tie_embeddings:
+            self.unembed = nn.Parameter(_normal(gen, (cfg.d_model, cfg.vocab_size),
+                                                cfg.d_model**-0.5, torch.float32, device))
+
+    def param_leaves(self) -> list:
+        """Parameters in JAX flatten order (the exchange's leaf order)."""
+        return [p for _, p in self.named_param_leaves()]
+
+    def named_param_leaves(self) -> list:
+        return sorted(self.named_parameters(), key=lambda kv: path_sort_key(kv[0]))
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        B, S = tokens.shape
+        x = self.embed[tokens].to(model_dtype(cfg)) * (cfg.d_model**0.5)
+        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        for stack in self.layers:
+            for i in range(stack.n):
+                x = block_apply(stack.layer(i), cfg, x, positions)
+        x = L.norm_apply({"scale": self.ln_f.scale}, x, cfg.norm_type)
+        if cfg.tie_embeddings:
+            return torch.einsum("bsd,vd->bsv", x.float(), self.embed)
+        return x.float() @ self.unembed

@@ -1,0 +1,1 @@
+"""optim layer of the port (see the package docstring)."""

@@ -1,0 +1,76 @@
+"""Worker body for the port's multi-worker exchange tests.
+
+Imported by ``torch.multiprocessing`` ``spawn`` children (never fork), so
+it imports torch and the port only.  Each worker joins a process group on
+a ``FileStore``, runs every case's quantized mean on its own vector with
+the noise it was handed, saves the result and destroys the group.
+:func:`run_group` starts the workers, joins them under a hard timeout and
+returns their outputs.
+"""
+
+import numpy as np
+import torch.distributed as dist
+
+JOIN_TIMEOUT_S = 120
+
+
+def run(rank, world, store_path, in_path, out_dir, cases, backend, device):
+    import torch
+
+    from repro_torch.core.exchange import ProcessGroupComm, qgenx_pmean
+    from repro_torch.core.noise import ReplayNoise
+    from repro_torch.core.quantization import QuantConfig, uniform_levels
+
+    dev = torch.device(device, rank) if device == "cuda" else torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    data = np.load(in_path)
+    dist.init_process_group(backend, store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        comm = ProcessGroupComm()
+        for i, (mode, bits, q_norm, bucket) in enumerate(cases):
+            s = 15 if bits == 8 else 5
+            cfg = QuantConfig(num_levels=s, bits=bits, bucket_size=bucket, q_norm=q_norm)
+            draws = [data[f"n1_{i}_{rank}"]]
+            if mode == "two_phase":
+                draws.append(data[f"n2_{i}_{rank}"])
+            noise = ReplayNoise(draws)
+            x = torch.from_numpy(data[f"x_{i}_{rank}"]).to(dev)
+            out = qgenx_pmean(x, comm, uniform_levels(s, dev), noise, cfg, mode)
+            if noise.remaining:
+                raise RuntimeError("not every noise draw was used")
+            np.save(f"{out_dir}/out_{i}_{rank}.npy", out.cpu().numpy())
+    finally:
+        dist.destroy_process_group()
+
+
+def run_group(K, workdir, inputs, cases, backend="gloo", device="cpu", while_running=None):
+    """Run K workers over ``inputs`` (keys ``x_/n1_/n2_{case}_{rank}``);
+    returns ``outs[case][rank]`` and ``while_running()``'s result (called
+    in this process while the workers run)."""
+    import torch.multiprocessing as mp
+
+    workdir.mkdir(parents=True, exist_ok=True)
+    np.savez(workdir / "inputs.npz", **inputs)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=run, args=(r, K, str(workdir / "store"),
+                                           str(workdir / "inputs.npz"), str(workdir),
+                                           cases, backend, device))
+             for r in range(K)]
+    for p in procs:
+        p.start()
+    try:
+        extra = while_running() if while_running is not None else None
+        for p in procs:
+            p.join(JOIN_TIMEOUT_S)
+        assert not any(p.is_alive() for p in procs), "exchange workers hung"
+        assert [p.exitcode for p in procs] == [0] * K
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    outs = [[np.load(workdir / f"out_{i}_{k}.npy") for k in range(K)]
+            for i in range(len(cases))]
+    return outs, extra

@@ -1,0 +1,130 @@
+"""The port's entry points: device selection, rejected options, the build
+step's failure path, noise sources and the training CLI on the CPU."""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core.exchange import (
+    ExchangeConfig,
+    exchange_buffer_bytes,
+    make_exchange,
+)
+from repro_torch.core.noise import GeneratorNoise, ReplayNoise
+from repro_torch.core.quantization import QuantConfig, exponential_levels, uniform_levels
+from repro_torch.device import resolve_device
+from repro_torch.kernels import cuda
+from repro_torch.launch import train
+from repro_torch.launch.steps import make_train_step
+from repro_torch.models.model import build
+from repro_torch.models.transformer import DenseDecoder
+from repro_torch.optim.optimizers import OptimizerConfig
+
+Q8 = QuantConfig(num_levels=15, bits=8, bucket_size=512)
+
+
+def test_cuda_without_a_gpu_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        build(get_config("tinyllama-1.1b").reduced())
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("make", [
+    lambda: DenseDecoder(get_config("tinyllama-1.1b").reduced()),
+    lambda: make_exchange(ExchangeConfig(quant=Q8)).init_state(),
+    lambda: uniform_levels(15),
+    lambda: exponential_levels(5),
+], ids=["DenseDecoder", "init_state", "uniform_levels", "exponential_levels"])
+def test_constructors_take_no_default_device(make):
+    # below the entry points, a caller names the device: nothing lands on
+    # the CPU unasked
+    with pytest.raises(TypeError, match="device"):
+        make()
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(compressor="randk"), dict(compressor="layerwise", quant=Q8),
+    dict(compressor="ef21-topk"), dict(compressor="qgenx"),
+    dict(quant=Q8, mode="leafwise"), dict(quant=Q8, level_schedule="qada"),
+    dict(quant=Q8, sync_every=2), dict(quant=Q8, recenter_every=3),
+    dict(quant=Q8, num_buckets=2, overlap="bucketed"), dict(quant=Q8, use_device_prng=True),
+    dict(quant=Q8, use_plan=False),
+])
+def test_unported_exchange_options_are_rejected(kwargs):
+    # an unported value raises ValueError; a field the slice does not
+    # have yet is an unknown keyword, TypeError
+    with pytest.raises((TypeError, ValueError)):
+        ExchangeConfig(**kwargs)
+
+
+def test_unported_optimizer_and_step_options_are_rejected():
+    with pytest.raises(ValueError, match="not ported"):
+        OptimizerConfig(name="extra_adam")
+    model = build(get_config("tinyllama-1.1b").reduced(), device="cpu")
+    ex = make_exchange(ExchangeConfig(quant=Q8))
+    with pytest.raises(TypeError, match="guard"):
+        make_train_step(model, OptimizerConfig(), ex, guard=True)
+    with pytest.raises(TypeError, match="fault_spec"):
+        make_train_step(model, OptimizerConfig(), ex, fault_spec="nan@1")
+    with pytest.raises(ValueError, match="da"):
+        make_train_step(model, OptimizerConfig(method="da"), ex)
+
+
+@pytest.mark.parametrize("compression,compressor,bits", [
+    ("none", "none", None), ("int8", "qgenx", 8), ("int4", "qgenx", 4),
+])
+def test_compression_flag_picks_the_compressor(compression, compressor, bits):
+    args = train.parser().parse_args(["--compression", compression])
+    cfg = train.build_exchange_config(args)
+    assert cfg.compressor == compressor
+    assert (cfg.quant.bits if cfg.quant else None) == bits
+
+
+@pytest.mark.parametrize("argv", [["--compressor", "none"], ["--optimizer", "qgenx"],
+                                  ["--repeat-batch"]])
+def test_train_cli_has_no_unported_flags(argv, capsys):
+    with pytest.raises(SystemExit):
+        train.parser().parse_args(argv)
+
+
+def test_kernel_build_failure_raises(monkeypatch, tmp_path):
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: no device compiler here' >&2\nexit 1\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(cuda, "nvcc_path", lambda: str(fake))
+    monkeypatch.setattr(cuda, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        cuda.build()
+    assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_replay_noise_checks_shape_and_count():
+    noise = ReplayNoise([np.zeros((2, 4), np.float32)])
+    with pytest.raises(ValueError, match="shape"):
+        noise.uniform((4, 2), "cpu")
+    with pytest.raises(RuntimeError, match="exhausted"):
+        noise.uniform((2, 4), "cpu")
+    g = GeneratorNoise.seeded(3, "cpu")
+    a = g.uniform((5, 7), "cpu")
+    assert a.dtype == torch.float32 and bool(((a >= 0) & (a < 1)).all())
+    assert not torch.equal(a, g.uniform((5, 7), "cpu"))
+
+
+@pytest.mark.parametrize("mode,bits,method", [("two_phase", 8, "de"), ("gather", 4, "optda")])
+def test_train_cli_on_cpu(mode, bits, method, capsys):
+    out = train.main(["--reduced", "--steps", "2", "--batch", "4", "--seq", "16",
+                      "--compression", f"int{bits}", "--compress-mode", mode,
+                      "--method", method, "--device", "cpu"])
+    assert all(math.isfinite(v) for v in out["loss"])
+    reduced = get_config("tinyllama-1.1b").reduced()
+    n = sum(p.numel() for p in build(reduced, device="cpu").param_leaves())
+    quant = QuantConfig(num_levels=15 if bits == 8 else 5, bits=bits, bucket_size=512)
+    calls = 2 if method == "de" else 1
+    assert out["wire_bytes"] == [calls * sum(exchange_buffer_bytes(n, 1, quant, mode).values())] * 2
+    assert "final_loss=" in capsys.readouterr().out

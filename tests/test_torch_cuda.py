@@ -1,0 +1,100 @@
+"""The CUDA exchange kernels against their plain versions on the card,
+and the multi-worker exchange over NCCL against gloo.
+
+These tests need CUDA GPUs and nvcc; where there are none they skip with a
+reason (``pytest -m gpu tests/test_torch_cuda.py`` runs them on the card;
+``python3 chip_smoke.py`` runs the same comparison and more).  The
+extension is built lazily, inside the tests.  Indices and packed bytes
+must be equal (q = inf), f32 outputs within rtol 1e-6.
+"""
+
+import pytest
+import torch
+
+from repro_torch.core.quantization import uniform_levels
+from repro_torch.kernels import cuda, ref
+from repro_torch.kernels.dequant_reduce import (
+    dequant_reduce_blocks,
+    dequant_reduce_requantize_blocks,
+)
+from repro_torch.kernels.dequantize import dequantize_blocks
+from repro_torch.kernels.quantize import quantize_blocks
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("K", [1, 2, 8])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_kernels_match_plain_versions(dev, bits, K):
+    s = 15 if bits == 8 else 5
+    lv = uniform_levels(s, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(bits * 10 + K)
+    nb, bucket = 37, 512
+    x = torch.randn((nb, bucket), generator=gen, device=dev)
+    x[5] = 0
+    r = torch.rand((nb, bucket), generator=gen, device=dev)
+    before = cuda.launch_counts()
+    pk, nk = quantize_blocks(x, r, lv, num_symbols=s + 2, q_is_inf=True, bits=bits)
+    pp, np_ = ref.quantize_blocks_plain(x, r, lv, num_symbols=s + 2, q_is_inf=True, bits=bits)
+    assert torch.equal(pk, pp) and torch.equal(nk, np_)
+    assert torch.allclose(dequantize_blocks(pk, nk, lv, num_symbols=s + 2, bits=bits),
+                          ref.dequantize_blocks_plain(pk, nk, lv, bits=bits), rtol=1e-6, atol=0)
+    P = torch.stack([pk] * K)
+    N = torch.stack([nk] * K)
+    assert torch.allclose(
+        dequant_reduce_blocks(P, N, lv, num_symbols=s + 2, num_workers=K, bits=bits),
+        ref.dequant_reduce_blocks_plain(P, N, lv, bits=bits), rtol=1e-6, atol=0)
+    ok, onk = dequant_reduce_requantize_blocks(P, N, lv, r, num_symbols=s + 2, num_workers=K,
+                                               q_is_inf=True, bits=bits)
+    op, onp = ref.dequant_reduce_requantize_blocks_plain(P, N, lv, r, num_symbols=s + 2,
+                                                         q_is_inf=True, bits=bits)
+    assert torch.equal(ok, op) and torch.equal(onk, onp)
+    after = cuda.launch_counts()
+    assert all(after[k] - before[k] == 1 for k in after)
+
+
+def test_nccl_exchange_matches_gloo(tmp_path):
+    """K > 1 on cards: the exchange over NCCL with the CUDA kernels gives
+    the same means as over gloo with the plain versions (the path held to
+    the JAX reference by test_torch_exchange.py), from the same inputs and
+    noise — bit-identical for q = inf, rtol 1e-6 for q = 2 (the L2 norm's
+    summation order differs)."""
+    import math
+
+    import numpy as np
+
+    import _torch_exchange_worker
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs at least two CUDA GPUs")
+    cuda.build()  # once, before the workers load it
+    K = min(4, torch.cuda.device_count())
+    cases = [("two_phase", 8, math.inf, 512), ("two_phase", 4, 2.0, 512),
+             ("gather", 8, 2.0, 512), ("gather", 4, math.inf, 512)]
+    rng = np.random.RandomState(0)
+    n = 100_003
+    inputs = {}
+    for i, (mode, _, _, bucket) in enumerate(cases):
+        quota = bucket if mode == "gather" else K * bucket
+        rows = -(-n // quota) * quota // bucket
+        for k in range(K):
+            inputs[f"x_{i}_{k}"] = rng.randn(n).astype(np.float32)
+            inputs[f"n1_{i}_{k}"] = rng.rand(rows, bucket).astype(np.float32)
+            inputs[f"n2_{i}_{k}"] = rng.rand(rows // K, bucket).astype(np.float32)
+    want, _ = _torch_exchange_worker.run_group(K, tmp_path / "gloo", inputs, cases)
+    got, _ = _torch_exchange_worker.run_group(K, tmp_path / "nccl", inputs, cases,
+                                              backend="nccl", device="cuda")
+    for i, (mode, bits, q_norm, _) in enumerate(cases):
+        for k in range(K):
+            if math.isinf(q_norm):
+                np.testing.assert_array_equal(got[i][k], want[i][k])
+            else:
+                np.testing.assert_allclose(got[i][k], want[i][k], rtol=1e-6, atol=1e-6)
