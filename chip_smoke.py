@@ -11,23 +11,45 @@ imports only ``repro_torch`` (from ``src/`` beside this file) and:
    not a multiple of any tile and with all-zero rows: payload indices and
    packed bytes exactly equal for q = inf (for q = 2, exactly equal in
    every row whose norm is bit-identical, else at most one level apart),
-   f32 outputs and norms within rtol 1e-6;
-4. drives the train step through the training entry point
-   (``repro_torch.launch.train.run``) at the full width of tinyllama-1.1b
-   (22 layers, d_model 2048, 32 heads / 4 kv heads, d_ff 5632, vocab
-   32000, bf16 layer weights, random from a seed): 3 qgenx ``de`` steps
-   with the int8 two_phase exchange, then 2 ``optda`` steps with the int4
-   gather exchange, batch 4 x seq 512 on the one card (K = 1).  Launch
-   counts are reset just before and read just after; every kernel must
-   have launched, every loss be finite and ``wire_bytes`` equal the
-   analytic buffer sizes.  A reduced-size run on the card is then held
-   against the same run on the CPU (same weights, exact exchange);
+   f32 outputs and norms within rtol 1e-6.  Kernel 5 (segment-fused
+   quantize∘dequantize) over T {1, 2, 3} stacked tables with mixed symbol
+   counts x q_norm {inf, 2} x stochastic / nearest rounding, with zero
+   rows and a NaN row: bit-equal for q = inf, rtol 1e-6 for q = 2;
+4. drives two paths, each with the launch counts reset just before it and
+   read just after:
+   a. the LM train step through the training entry point
+      (``repro_torch.launch.train.run``) at the full width of
+      tinyllama-1.1b (22 layers, d_model 2048, 32 heads / 4 kv heads,
+      d_ff 5632, vocab 32000, bf16 layer weights, random from a seed):
+      3 qgenx ``de`` steps with the int8 two_phase exchange, 2 ``optda``
+      steps with the int4 gather exchange, then 2 ``extra_adam`` steps
+      with the layerwise int4 / int8 two_phase exchange, batch 4 x seq 512
+      on the one card (K = 1).  Kernels 1-4 must have launched, every loss
+      be finite and ``wire_bytes`` equal the analytic buffer sizes.  A
+      reduced-size run on the card is then held against the same run on
+      the CPU (same weights, exact exchange);
+   b. the WGAN-GP testbed (``repro_torch.launch.train_gan.run``, the
+      paper's Section 5 at the reference's width: K = 3 workers, batch
+      256 each, hidden 64) for 300 ExtraAdam steps in each of the fp32,
+      uq8, uq4 and layerwise arms.  Kernel 5 must launch twice per step in
+      every compressed arm and never in fp32; every energy distance must
+      be finite and uq8's below the reference's bound 2 * fp32 + 0.5.
+      Each compressed arm's first kernel-5 call on the path ([3 x 19,
+      512]: num_symbols (17,) for uq8, (7,) for uq4, (7, 17) for
+      layerwise) is kept, its output held bit-equal to the plain version
+      on the same inputs, and the kernel timed at that shape (the
+      ``gan-*`` rows of kernel 5);
 5. runs each kernel at its main-path shape (the flat exchange buffer of
    tinyllama-1.1b, 2,148,532 rows x 512): kernels 1, 2, 3 in int8 as
-   two_phase chains them, kernels 1 and 4 in int4 as gather does.  Each
-   output is held against the plain version's on the same inputs (payload
-   bytes exactly equal, f32 within rtol 1e-6), and each kernel is timed
-   beside its bound and its plain version.  Kernel 1 has a row per width.
+   two_phase chains them, kernels 1 and 4 in int4 as gather does, and
+   kernel 5 on the same buffer with one table (qgenx int8) and with the
+   layerwise policy's two (int4 above 65536 coordinates, int8 below): the
+   ``tinyllama-buffer-*`` rows, a size no path of this slice gives kernel
+   5 (it carries the GAN path's launches).
+   Each output is held against the plain version's on the same inputs
+   (payload bytes and kernel 5's estimates exactly equal, f32 within rtol
+   1e-6), and each kernel is timed beside its bound and its plain
+   version.  Kernels 1 and 5 have a row per variant and shape.
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -53,7 +75,9 @@ REPLACES = {
     "dequant_reduce_requantize_blocks": "src/repro/kernels/dequant_reduce.py:136",
     "dequantize_blocks": "src/repro/kernels/dequantize.py:48",
     "dequant_reduce_blocks": "src/repro/kernels/dequant_reduce.py:73",
+    "quantize_dequantize_segments": "src/repro/kernels/segment_quantize.py:67",
 }
+GAN_STEPS = 300
 
 
 def exchanged_coords(cfg) -> int:
@@ -206,8 +230,59 @@ def kernel_parity(torch) -> dict:
                 and bool(nk[1].isnan())):
             fail(f"{tag}: NaN does not reach the same norms and values as the plain version")
         cases += 2
+    cases += segment_parity(torch, gen, errs)
     log(f"phase 3: {cases} kernel-vs-plain cases agree; max abs err {errs}")
     return errs
+
+
+def _check_segment(torch, name, got, want, q_is_inf):
+    """Kernel 5 vs its plain version: the same NaNs; elsewhere bit-equal for
+    q = inf, rtol 1e-6 for q = 2 (the L^2 sum's order); returns the max
+    abs error over the finite coordinates."""
+    if not torch.equal(got.isnan(), want.isnan()):
+        fail(f"{name}: NaN positions differ from the plain version")
+    g, w = got.nan_to_num(), want.nan_to_num()
+    if q_is_inf and not torch.equal(g, w):
+        fail(f"{name}: {int((g != w).sum())} estimates differ from the plain version")
+    return _close(torch, name, g, w)
+
+
+def segment_parity(torch, gen, errs) -> int:
+    """Kernel 5 against its plain version at small shapes."""
+    from repro_torch.core.exchange_plan import stack_level_tables
+    from repro_torch.core.quantization import exponential_levels, uniform_levels
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_quantize import quantize_dequantize_segments
+
+    dev = torch.device("cuda")
+    nb = 37
+    all_tables = [uniform_levels(15, dev), uniform_levels(5, dev), exponential_levels(3, dev)]
+    cases = 0
+    for T in (1, 2, 3):
+        tables, ns = stack_level_tables(all_tables[:T])  # 17, 7, 5 symbols
+        for bucket in (512, 130, 37):
+            for q_is_inf in (True, False):
+                for stochastic in (True, False):
+                    tag = (f"segment T={T} ns={ns} bucket={bucket} q={'inf' if q_is_inf else 2}"
+                           f" {'stochastic' if stochastic else 'nearest'}")
+                    x = torch.randn((nb, bucket), generator=gen, device=dev) * 3
+                    x[[0, 17]] = 0.0
+                    x[5, bucket // 2] = float("nan")
+                    r = torch.rand((nb, bucket), generator=gen, device=dev)
+                    seg = torch.randint(0, T, (nb,), generator=gen, device=dev,
+                                        dtype=torch.int32)
+                    kw = dict(num_symbols=ns, q_is_inf=q_is_inf, stochastic=stochastic)
+                    got = quantize_dequantize_segments(x, r if stochastic else None, tables,
+                                                       seg, **kw)
+                    want = ref.quantize_dequantize_segments_plain(x, r, tables, seg, **kw)
+                    torch.cuda.synchronize()
+                    if not bool(got[5].isnan().all()) or bool((got[[0, 17]] != 0).any()):
+                        fail(f"{tag}: the NaN row or the zero rows are wrong")
+                    errs["quantize_dequantize_segments"] = max(
+                        errs["quantize_dequantize_segments"],
+                        _check_segment(torch, tag, got, want, q_is_inf))
+                    cases += 1
+    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -225,23 +300,41 @@ def _train_args(**kw):
     return parser().parse_args(argv)
 
 
-def train_path(torch, batch: int, seq: int) -> dict:
-    """The main path at full width; returns each kernel's launch counts by
-    bit width: {8: the int8 two_phase run's, 4: the int4 gather run's}."""
+def tinyllama_leaf_shapes(torch) -> list:
+    """Leaf shapes of tinyllama-1.1b at full width, in JAX flatten order
+    (the exchange's leaf order), from a model built once on the card."""
     from repro_torch.configs import get_config
-    from repro_torch.core.exchange import exchange_buffer_bytes
+    from repro_torch.models.model import build
+
+    model = build(get_config("tinyllama-1.1b"), device="cuda")
+    shapes = [tuple(p.shape) for p in model.param_leaves()]
+    del model
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def train_path(torch, batch: int, seq: int, shapes: list) -> dict:
+    """The LM path at full width; returns each kernel's launch counts by
+    run: {"int8": the qgenx int8 two_phase run's, "int4": the qgenx int4
+    gather run's, "layerwise": the extra_adam layerwise run's}."""
+    from repro_torch.core.exchange import ExchangeConfig, make_exchange
+    from repro_torch.core.exchange_plan import size_of
     from repro_torch.core.quantization import QuantConfig
     from repro_torch.kernels import cuda
     from repro_torch.launch.train import run
 
     runs = [
-        dict(method="de", compression="int8", compress_mode="two_phase", steps=3),
-        dict(method="optda", compression="int4", compress_mode="gather", steps=2),
+        ("int8", 2, dict(optimizer="qgenx", method="de", compression="int8",
+                         compress_mode="two_phase", steps=3)),
+        ("int4", 1, dict(optimizer="qgenx", method="optda", compression="int4",
+                         compress_mode="gather", steps=2)),
+        ("layerwise", 2, dict(optimizer="extra_adam", compressor="layerwise",
+                              compression="int4", compress_mode="two_phase", steps=2)),
     ]
-    n_live = exchanged_coords(get_config("tinyllama-1.1b"))
-    by_bits = {}
+    sizes = [size_of(s) for s in shapes]
+    by_run = {}
     cuda.reset_launch_counts()
-    for spec in runs:
+    for tag, calls, spec in runs:
         before = cuda.launch_counts()
         out = run(
             _train_args(arch="tinyllama-1.1b", dtype="bfloat16", batch=batch, seq=seq,
@@ -250,24 +343,107 @@ def train_path(torch, batch: int, seq: int) -> dict:
         after = cuda.launch_counts()
         bits = 8 if spec["compression"] == "int8" else 4
         quant = QuantConfig(num_levels=15 if bits == 8 else 5, bits=bits, bucket_size=512)
-        calls = 2 if spec["method"] == "de" else 1
-        want_wire = calls * sum(exchange_buffer_bytes(n_live, 1, quant,
-                                                      spec["compress_mode"]).values())
+        ex = make_exchange(ExchangeConfig(compressor=spec.get("compressor", "qgenx"),
+                                          quant=quant, mode=spec["compress_mode"]))
+        want_wire = calls * ex.compressor.wire_bytes_tree(sizes, 1, ex.cfg)
         if not all(math.isfinite(v) for v in out["loss"]):
             fail(f"non-finite loss in {spec}: {out['loss']}")
         if any(w != want_wire for w in out["wire_bytes"]):
             fail(f"wire_bytes {out['wire_bytes']} != analytic {want_wire} in {spec}")
         delta = {k: after[k] - before[k] for k in after}
-        by_bits[bits] = delta
-        log(f"  {spec['method']} {spec['compression']} {spec['compress_mode']}: "
+        by_run[tag] = delta
+        log(f"  {spec['optimizer']} {tag} {spec['compress_mode']}: "
             f"loss={out['loss']} wire_bytes={out['wire_bytes'][0]:.0f} "
             f"step_s={out['step_s']} launches={delta}")
     counts = cuda.launch_counts()
-    missing = [k for k, v in counts.items() if v == 0]
+    lm_kernels = [k for k in counts if k != "quantize_dequantize_segments"]
+    missing = [k for k in lm_kernels if counts[k] == 0]
     if missing:
-        fail(f"kernels never launched on the main path: {missing}")
-    log(f"phase 4: main-path launches {counts}")
-    return by_bits
+        fail(f"kernels never launched on the LM path: {missing}")
+    log(f"phase 4a: LM path launches {counts}")
+    return by_run
+
+
+GAN_TABLES = {"uq8": (17,), "uq4": (7,), "layerwise": (7, 17)}  # kernel 5's num_symbols
+
+
+def gan_path(torch) -> tuple:
+    """The WGAN-GP testbed at the reference's width, every ported arm.
+
+    While it runs, the kernel-5 wrapper that ``fused_compress`` calls is
+    wrapped to keep a copy of its first call's inputs and output in each
+    arm (during step 0, which the median step time leaves out).  After the
+    arms, each copy's output, the path's own, is held bit-equal to the
+    plain version on the same inputs, and the wrapper is timed at that
+    shape ([K x 19, 512]: 3 workers' buffers in one launch).  Returns
+    ({arm: (result, kernel 5 launches)}, the GAN-shape kernel rows)."""
+    from repro_torch.core import exchange_plan
+    from repro_torch.kernels import cuda, ref
+    from repro_torch.launch import train_gan
+
+    wrapper = exchange_plan.quantize_dequantize_segments
+    first = {}
+
+    def recorder(x2d, noise, tables, seg_ids, **kw):
+        out = wrapper(x2d, noise, tables, seg_ids, **kw)
+        if arm not in first:
+            first[arm] = ([t.clone() if t is not None else None
+                           for t in (x2d, noise, tables, seg_ids)], kw, out.clone())
+        return out
+
+    out = {}
+    cuda.reset_launch_counts()
+    exchange_plan.quantize_dequantize_segments = recorder
+    try:
+        for arm in train_gan.PORTED_ARMS:
+            before = cuda.launch_counts()["quantize_dequantize_segments"]
+            args = train_gan.parser().parse_args(["--steps", str(GAN_STEPS), "--arms", arm])
+            res = train_gan.run(args, log=lambda m: log(f"  {m}"))[arm]
+            n = cuda.launch_counts()["quantize_dequantize_segments"] - before
+            want = 0 if arm == "fp32" else 2 * GAN_STEPS  # one launch per exchange
+            if n != want:
+                fail(f"GAN arm {arm}: kernel 5 launched {n} times, expected {want}")
+            if not math.isfinite(res["energy_distance"]):
+                fail(f"GAN arm {arm}: energy distance {res['energy_distance']}")
+            out[arm] = (res, n)
+            log(f"  gan {arm}: energy_distance={res['energy_distance']!r} "
+                f"median_step_ms={res['median_step_ms']!r} "
+                f"bytes_per_step_per_worker={res['bytes_per_step_per_worker']:.0f} "
+                f"kernel5_launches={n}")
+    finally:
+        exchange_plan.quantize_dequantize_segments = wrapper
+    ed8, ed32 = out["uq8"][0]["energy_distance"], out["fp32"][0]["energy_distance"]
+    if not ed8 < 2 * ed32 + 0.5:
+        fail(f"GAN uq8 energy distance {ed8} breaks the bound 2 * fp32 ({ed32}) + 0.5")
+    counts = cuda.launch_counts()
+    if counts["quantize_dequantize_segments"] == 0:
+        fail("kernel 5 never launched on the GAN path")
+    log(f"phase 4b: GAN path launches {counts}")
+
+    # the path's own kernel-5 calls against the plain version, then timed
+    rows = []
+    workers = train_gan.parser().parse_args([]).workers
+    for arm, ns in GAN_TABLES.items():
+        if arm not in first:
+            fail(f"GAN arm {arm}: no kernel-5 call was recorded")
+        (x, r, tables, seg), kw, got = first[arm]
+        if (tuple(x.shape) != (workers * 19, 512) or kw["num_symbols"] != ns
+                or not kw["q_is_inf"] or not kw["stochastic"] or r is None):
+            fail(f"GAN arm {arm}: kernel 5 called on {tuple(x.shape)} with {kw}, expected "
+                 f"[{workers * 19}, 512] with num_symbols {ns}, q = inf, stochastic")
+        tag = f"GAN {arm} [{x.shape[0]} x 512] T={len(ns)} ns={ns}"
+        want = ref.quantize_dequantize_segments_plain(x, r, tables, seg, **kw)
+        err = _check_segment(torch, f"{tag} (the path's output)", got, want, True)
+        ms, again = _time_ms(torch, lambda: wrapper(x, r, tables, seg, **kw), 200)
+        plain, _ = _time_ms(torch, lambda: ref.quantize_dequantize_segments_plain(
+            x, r, tables, seg, **kw), 50)
+        _check_segment(torch, f"{tag} (timed)", again, want, True)
+        n = x.numel()
+        rows.append(kernel_row(f"quantize_dequantize_segments/gan-{arm}", out[arm][1], ms,
+                               plain, err, 12 * n + 4 * x.shape[0] + 4 * tables.numel(),
+                               n * (10 + max(ns)),
+                               f"{tag}, the GAN path's shape"))
+    return out, rows
 
 
 class _NumpyNoise:
@@ -354,6 +530,23 @@ def _time_ms(torch, fn, reps: int):
     return start.elapsed_time(end) / reps, out
 
 
+def kernel_row(name, launches, ms, plain_ms, err, nbytes, ops, what) -> dict:
+    """One entry of the ``kernels`` line: the bound is the larger of the
+    bytes over the HBM rate and the f32 operations over the f32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    bound = max(t_bytes, t_ops)
+    kernel = name.split("/")[0]
+    row = {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+           "replaces": REPLACES[kernel], "launches": launches, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+    log(f"  {name} [{what}]: {ms:.4f} ms (bound {bound:.4f} ms by {row['bound_by']}, "
+        f"{nbytes / 1e9:.4f} GB; plain {plain_ms:.4f} ms); launches {launches}, "
+        f"max abs err vs plain {err:.3e}")
+    return row
+
+
 def _deq_err(torch, name, got, want, levels, bits, chunk=1 << 18):
     """Max abs difference of two (payload, norms) pairs once dequantized by
     the plain version, in row chunks (a full buffer dequantized twice would
@@ -373,14 +566,17 @@ def _deq_err(torch, name, got, want, levels, bits, chunk=1 << 18):
     return err
 
 
-def kernel_times(torch, launches: dict, errs: dict) -> list:
+def kernel_times(torch, launches: dict, errs: dict, shapes: list) -> list:
     """Each kernel at the shape the main path gives it: the tinyllama-1.1b
     flat exchange buffer (K = 1, bucket 512, q = inf); kernels 1-3 as the
     int8 two_phase exchange runs them (kernel 2 and 3 on kernel 1's and
     kernel 2's outputs), kernels 1 and 4 as the int4 gather exchange runs
-    them.  Each kernel's last timed output is held against its plain
-    version's on the same inputs (payload bytes exactly equal, f32 within
-    rtol 1e-6); ``max_abs_err`` is the larger of this and phase 3's."""
+    them, kernel 5 as ``compress_tree`` runs it on that buffer (qgenx int8:
+    one table; layerwise: the plan's two segments).  Each kernel's last
+    timed output is held against its plain version's on the same inputs
+    (payload bytes and kernel 5's estimates exactly equal, f32 within rtol
+    1e-6); ``max_abs_err`` is the larger of this and phase 3's.
+    ``launches`` is each kernel's count over the main path it runs on."""
     from repro_torch.configs import get_config
     from repro_torch.core.quantization import uniform_levels
     from repro_torch.kernels import ref
@@ -400,20 +596,10 @@ def kernel_times(torch, launches: dict, errs: dict) -> list:
     gen.manual_seed(99)
     out = []
 
-    def entry(name, bits, ms, plain_ms, err, nbytes, ops):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / F32_OPS_PER_S * 1e3
-        bound = max(t_bytes, t_ops)
+    def entry(name, bits, ms, plain_ms, err, nbytes, ops, what=None):
         kernel = name.split("/")[0]
-        row = {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-               "replaces": REPLACES[kernel], "launches": launches[bits][kernel],
-               "max_abs_err": max(err, errs[kernel]), "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "library_ms": None}
-        log(f"  {name} [{rows} x {bucket}, int{bits}]: {ms:.3f} ms (bound {bound:.3f} ms by "
-            f"{row['bound_by']}, {nbytes / 1e9:.2f} GB; plain {plain_ms:.3f} ms); "
-            f"vs plain: max abs err {err:.3e} here, {errs[kernel]:.3e} in phase 3")
-        out.append(row)
+        out.append(kernel_row(name, launches[kernel], ms, plain_ms, max(err, errs[kernel]),
+                              nbytes, ops, f"{rows} x {bucket}, {what or f'int{bits}'}"))
 
     def quantize(bits, s, lv):
         x = torch.randn((rows, bucket), generator=gen, device=dev)
@@ -466,7 +652,68 @@ def kernel_times(torch, launches: dict, errs: dict) -> list:
         P, N, lv, bits=bits), 2)
     err = _close(torch, "dequant_reduce main-path shape", got, want)
     entry("dequant_reduce_blocks", bits, ms, plain, err, n // 2 + 4 * rows + 4 * n, 4 * n)
+    del P, N, payload, norms, got, want
+    torch.cuda.empty_cache()
+    segment_times(torch, gen, rows, bucket, shapes, entry)
     return out
+
+
+def segment_times(torch, gen, rows, bucket, shapes, entry, chunk=1 << 18) -> None:
+    """Kernel 5 on the tinyllama-1.1b compress buffer, with the qgenx int8
+    table (T = 1) and with the layerwise plan's two segments (T = 2: leaves
+    above 65536 coordinates in int4 first, the rest in int8).  The plain
+    version runs in row chunks (its intermediates at full size would not
+    fit beside the buffers); its chunks are timed together and each is
+    held bit-equal to the kernel's rows."""
+    from repro_torch.core.exchange import ExchangeConfig, make_exchange
+    from repro_torch.core.exchange_plan import stack_level_tables
+    from repro_torch.core.quantization import QuantConfig, uniform_levels
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_quantize import quantize_dequantize_segments
+
+    dev = torch.device("cuda")
+    lo = QuantConfig(num_levels=5, bits=4, bucket_size=bucket)
+    plan = make_exchange(ExchangeConfig(compressor="layerwise", quant=lo)).plan_for(
+        shapes, "compress", 1)
+    seg_rows = [seg.padded // bucket for seg in plan.segments]
+    if sum(seg_rows) != rows or [s.quant.bits for s in plan.segments] != [4, 8]:
+        fail(f"layerwise plan {plan.describe()} does not cover the {rows}-row buffer")
+    n = rows * bucket
+    x = torch.randn((rows, bucket), generator=gen, device=dev)
+    r = torch.rand((rows, bucket), generator=gen, device=dev)
+    variants = [
+        ("qgenx-int8", [uniform_levels(15, dev)],
+         torch.zeros((rows,), dtype=torch.int32, device=dev)),
+        ("layerwise", [uniform_levels(5, dev), uniform_levels(15, dev)],
+         torch.cat([torch.full((k,), t, dtype=torch.int32, device=dev)
+                    for t, k in enumerate(seg_rows)])),
+    ]
+    for tag, tables, seg in variants:
+        stacked, ns = stack_level_tables(tables)
+        kw = dict(num_symbols=ns, q_is_inf=True, stochastic=True)
+        ms, got = _time_ms(torch, lambda: quantize_dequantize_segments(
+            x, r, stacked, seg, **kw), 10)
+
+        def plain_chunks(check):
+            for i in range(0, rows, chunk):
+                sl = slice(i, i + chunk)
+                want = ref.quantize_dequantize_segments_plain(x[sl], r[sl], stacked,
+                                                              seg[sl], **kw)
+                if check and not torch.equal(got[sl], want):
+                    fail(f"segment {tag} main-path shape: rows {i}.. differ from the "
+                         "plain version")
+
+        plain, _ = _time_ms(torch, lambda: plain_chunks(False), 1)
+        plain_chunks(True)
+        del got
+        torch.cuda.empty_cache()
+        # x and the noise read once, the estimate written once; per
+        # coordinate: abs, divide, clamp, (s_max - 2) compares, two
+        # subtracts, a divide, the rounding compare, sign and product
+        entry(f"quantize_dequantize_segments/tinyllama-buffer-{tag}", 0, ms, plain, 0.0,
+              12 * n + 4 * rows + 4 * stacked.numel(), n * (10 + max(ns)),
+              what=f"T={len(tables)} ns={ns}; not a shape the GAN path runs, its launches "
+                   "are the GAN path's")
 
 
 def main() -> None:
@@ -518,18 +765,26 @@ def main() -> None:
         log("--skip-train: stopping after phase 3")
         sys.exit(4)
 
-    # phase 4: the train path at full width, then card vs cpu at small size
+    # phase 4a: the LM path at full width, then card vs cpu at small size
     t0 = time.perf_counter()
-    launches = train_path(torch, args.batch, args.seq)
+    shapes = tinyllama_leaf_shapes(torch)
+    by_run = train_path(torch, args.batch, args.seq, shapes)
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     card_vs_cpu(torch)
-    log(f"phase 4 took {time.perf_counter() - t0:.1f} s")
+    log(f"phase 4a took {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
+    launches = {k: sum(d[k] for d in by_run.values()) for k in cuda.KERNELS}
+
+    # phase 4b: the WGAN-GP testbed, every ported arm
+    t0 = time.perf_counter()
+    gan, gan_rows = gan_path(torch)
+    launches["quantize_dequantize_segments"] = sum(n for _, n in gan.values())
+    log(f"phase 4b took {time.perf_counter() - t0:.1f} s")
 
     # phase 5: kernel times at the main-path shapes
     t0 = time.perf_counter()
-    rows = kernel_times(torch, launches, errs)
+    rows = kernel_times(torch, launches, errs, shapes) + gan_rows
     log(f"phase 5 took {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": rows}), flush=True)

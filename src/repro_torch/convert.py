@@ -6,6 +6,8 @@ pytree converted leaf by leaf with ``np.asarray`` goes into a port model
 with :func:`params_from_jax`, and :func:`params_to_jax` gives the inverse
 tree (nested dicts and tuples, the reference's structure).  Leaves are
 matched in JAX flatten order and checked by shape.
+:func:`gan_params_from_jax` and :func:`gan_params_to_jax` do the same for
+the WGAN-GP testbed's generator and critic (:class:`repro_torch.gan.wgan.WGAN`).
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.tree import tree_flatten, tree_unflatten
+from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
 
 
 def _tree_of(model) -> dict:
@@ -59,5 +61,27 @@ def params_from_jax(tree_of_numpy, model):
         a = np.asarray(a)
         if tuple(a.shape) != tuple(p.shape):
             raise ValueError(f"{path}: reference shape {a.shape} != {tuple(p.shape)}")
+        p.copy_(torch.from_numpy(np.array(a, dtype=np.float32)))
+    return model
+
+
+def gan_params_to_jax(model) -> dict:
+    """WGAN parameters -> the reference's ``{"critic": [{"b", "w"}, ...],
+    "gen": [...]}`` tree of numpy arrays."""
+    return tree_map(lambda p: p.detach().cpu().numpy(), model.param_tree())
+
+
+@torch.no_grad()
+def gan_params_from_jax(tree_of_numpy, model):
+    """Copy a reference WGAN params tree (numpy leaves) into ``model``;
+    returns the model.  Raises if the leaf count or any shape disagrees."""
+    src = tree_flatten(tree_of_numpy)[0]
+    dst = tree_flatten(model.param_tree())[0]
+    if len(src) != len(dst):
+        raise ValueError(f"reference tree has {len(src)} leaves, model has {len(dst)}")
+    for a, p in zip(src, dst):
+        a = np.asarray(a)
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(f"reference shape {a.shape} != {tuple(p.shape)}")
         p.copy_(torch.from_numpy(np.array(a, dtype=np.float32)))
     return model

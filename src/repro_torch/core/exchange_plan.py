@@ -1,24 +1,26 @@
 """ExchangePlan — static flat-buffer layout for tree exchanges.
 
-Port of ``repro/core/exchange_plan.py`` (the layout half; the
-segment-fused compression dispatch serves compress_tree and re-centering,
-which are not ported yet).  A plan fixes, once per (leaf shapes, exchange
-config, worker count): the order leaves are packed, their offsets in the
-flat f32 buffer, and the segments with their padding tails (bucket, or
-``axis_size * bucket`` quota in two-phase mode).  ``pack`` writes the
-buffer once in its final aligned layout, so the exchange needs no further
-padding; ``unpack`` slices the leaves back out and casts to their dtypes.
+Port of ``repro/core/exchange_plan.py``.  A plan fixes, once per (leaf
+shapes, exchange config, worker count): the order leaves are packed, their
+offsets in the flat f32 buffer, and the segments with their padding tails
+(bucket, or ``axis_size * bucket`` quota in two-phase mode).  ``pack``
+writes the buffer once in its final aligned layout, so the exchange needs
+no further padding; ``unpack`` slices the leaves back out and casts to
+their dtypes.  :func:`fused_compress` is the segment-fused quantize∘
+dequantize of ``compress_tree``: one launch of kernel 5 per row geometry.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Optional
 
 import torch
 
 from repro_torch.core.quantization import QuantConfig
+from repro_torch.kernels.segment_quantize import quantize_dequantize_segments
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,30 +65,31 @@ class ExchangePlan:
     total: int
     n_live: int
 
-    def pack(self, leaves) -> torch.Tensor:
+    def pack(self, leaves, batch: tuple = ()) -> torch.Tensor:
         """Leaves -> the flat f32 buffer, written once in its final layout
         (each leaf copied into place with a dtype cast; only the padding
-        tails are zeroed)."""
+        tails are zeroed).  Leaves may carry leading ``batch`` dims (one
+        buffer per worker: the flat buffer is then ``[*batch, total]``)."""
         dev = leaves[0].device if leaves else torch.device("cpu")
-        flat = torch.empty((self.total,), dtype=torch.float32, device=dev)
+        flat = torch.empty((*batch, self.total), dtype=torch.float32, device=dev)
         pos = 0
         for i in self.pack_order:
             off = self.offsets[i]
             if off > pos:
-                flat[pos:off].zero_()
+                flat[..., pos:off].zero_()
             n = size_of(self.shapes[i])
-            flat[off: off + n].copy_(leaves[i].reshape(-1))
+            flat[..., off: off + n].copy_(leaves[i].reshape(*batch, n))
             pos = off + n
         if pos < self.total:
-            flat[pos:].zero_()
+            flat[..., pos:].zero_()
         return flat
 
     def unpack(self, flat: torch.Tensor, leaves) -> list:
-        """Flat buffer -> per-leaf tensors cast to each leaf's dtype (f32
-        leaves are views of ``flat``)."""
+        """Flat buffer (``[*batch, total]``) -> per-leaf tensors shaped and
+        cast like ``leaves`` (f32 leaves are views of ``flat``)."""
         return [
-            flat[off: off + l.numel()].reshape(l.shape).to(l.dtype)
-            for l, off in zip(leaves, self.offsets)
+            flat[..., off: off + size_of(shape)].reshape(l.shape).to(l.dtype)
+            for l, off, shape in zip(leaves, self.offsets, self.shapes)
         ]
 
     def compress_payload_bytes(self) -> float:
@@ -103,12 +106,13 @@ class ExchangePlan:
         )
 
 
-def leaf_key(leaves) -> tuple:
+def leaf_key(leaves, lead: int = 0) -> tuple:
     """Hashable static descriptor of a leaf list — the plan cache key:
-    ``((shape, dtype name), ...)`` with the reference's dtype names."""
+    ``((shape, dtype name), ...)`` with the reference's dtype names;
+    ``lead`` leading (worker) dims of each tensor are left out."""
     out = []
     for l in leaves:
-        shape = tuple(l.shape) if hasattr(l, "shape") else tuple(l)
+        shape = tuple(l.shape)[lead:] if hasattr(l, "shape") else tuple(l)
         dt = str(l.dtype).removeprefix("torch.") if hasattr(l, "dtype") else "float32"
         out.append((shape, dt))
     return tuple(out)
@@ -154,3 +158,80 @@ def build_plan(leaves_key: tuple, groups: tuple, mode: str, axis_size: int,
         total=pos,
         n_live=sum(sizes),
     )
+
+
+# ---------------------------------------------------------------------------
+# Segment-fused compression dispatch (Q∘DEQ over the whole buffer)
+# ---------------------------------------------------------------------------
+
+
+def stack_level_tables(tables) -> tuple:
+    """Stack level tables of (possibly) different sizes into one
+    ``[T, S_max]`` f32 tensor (rows right-padded with 1.0, never gathered)
+    plus the per-table symbol counts — the buffer kernel 5 keeps in shared
+    memory."""
+    num_symbols = tuple(int(t.shape[0]) for t in tables)
+    s_max = max(num_symbols)
+    rows = [torch.cat([t.float(), t.new_ones((s_max - ns,), dtype=torch.float32)])
+            if ns < s_max else t.float() for t, ns in zip(tables, num_symbols)]
+    return torch.stack(rows), num_symbols
+
+
+@functools.lru_cache(maxsize=None)
+def _row_tables(plan: ExchangePlan, seg_ids: tuple, bucket: int, workers: int,
+                device: str) -> torch.Tensor:
+    """[workers * rows] int32 local table id of each bucket row of one
+    geometry class (built once per plan, class, worker count and device)."""
+    row_tab = []
+    for local_t, si in enumerate(seg_ids):
+        row_tab.extend([local_t] * (plan.segments[si].padded // bucket))
+    return torch.tensor(row_tab * workers, dtype=torch.int32, device=device)
+
+
+def fused_compress(plan: ExchangePlan, flat: torch.Tensor, tables: tuple,
+                   noise) -> torch.Tensor:
+    """One fused quantize∘dequantize pass over the planned buffer.
+
+    ``flat`` is ``[total]``, or ``[W, total]`` for W workers' buffers at
+    once (the counterpart of the reference's ``vmap`` over the kernel).
+    ``tables`` holds one level table per plan segment, in segment order.
+    Segments that share row geometry (bucket size, norm order, rounding
+    mode) take ONE launch of kernel 5 with stacked segment-indexed
+    tables; classes run in sorted geometry order, and each asks ``noise``
+    for one ``[rows, bucket]`` draw per worker, in worker order (the
+    reference keys class ``gi`` with ``fold_in(key, gi)`` when there is
+    more than one class).  Returns the f32 estimate, shaped like ``flat``.
+    """
+    if len(tables) != len(plan.segments):
+        raise ValueError(f"{len(tables)} tables for {len(plan.segments)} segments")
+    batched = flat.dim() == 2
+    buf = flat if batched else flat.unsqueeze(0)
+    W = buf.shape[0]
+    classes: dict = {}
+    for si, seg in enumerate(plan.segments):
+        q = seg.quant
+        if q is None:
+            raise ValueError("fused_compress needs quantized segments")
+        classes.setdefault((q.bucket_size, float(q.q_norm), q.stochastic), []).append(si)
+    out_parts: list = [None] * len(plan.segments)
+    for (bucket, q_norm, stochastic), seg_ids in sorted(classes.items()):
+        chunks = [buf[:, plan.segments[si].start: plan.segments[si].stop] for si in seg_ids]
+        x = chunks[0] if len(chunks) == 1 else torch.cat(chunks, dim=1)
+        rows = x.shape[1] // bucket
+        x2d = x.reshape(W * rows, bucket)
+        stacked, num_symbols = stack_level_tables([tables[si] for si in seg_ids])
+        r = None
+        if stochastic:
+            draws = [noise.uniform((rows, bucket), x2d.device) for _ in range(W)]
+            r = draws[0] if W == 1 else torch.cat(draws)
+        hat2d = quantize_dequantize_segments(
+            x2d, r, stacked, _row_tables(plan, tuple(seg_ids), bucket, W, str(x2d.device)),
+            num_symbols=num_symbols, q_is_inf=math.isinf(q_norm), stochastic=stochastic)
+        hat = hat2d.reshape(W, rows * bucket)
+        col = 0
+        for si in seg_ids:
+            padded = plan.segments[si].padded
+            out_parts[si] = hat[:, col: col + padded]
+            col += padded
+    out = out_parts[0] if len(out_parts) == 1 else torch.cat(out_parts, dim=1)
+    return out if batched else out[0]

@@ -10,6 +10,9 @@ function of the port that rounds stochastically takes a noise source:
 * :class:`ReplayNoise` — parity runs: hands out given arrays (e.g. the
   reference's ``jax.random.uniform`` draws) in the order they are asked
   for, checking each shape.
+
+Both also give standard normal draws (``normal``), which the WGAN-GP
+testbed takes its latent samples from.
 """
 
 from __future__ import annotations
@@ -34,6 +37,10 @@ class GeneratorNoise:
         return torch.rand(tuple(shape), generator=self.generator, device=device,
                           dtype=torch.float32)
 
+    def normal(self, shape, device) -> torch.Tensor:
+        return torch.randn(tuple(shape), generator=self.generator, device=device,
+                           dtype=torch.float32)
+
 
 class ReplayNoise:
     """Replays given noise arrays, in order; raises on a shape mismatch or
@@ -53,6 +60,8 @@ class ReplayNoise:
             raise ValueError(f"replayed noise has shape {tuple(t.shape)}, the draw "
                              f"asks for {tuple(shape)}")
         return t.to(device=device, dtype=torch.float32)
+
+    normal = uniform  # a replayed array is whatever the caller drew
 
     @property
     def remaining(self) -> int:

@@ -27,7 +27,10 @@ class QuantConfig:
       q_norm: the ``q`` of the L^q normalization (``math.inf`` or 2.0).
       bucket_size: coordinates per norm bucket (even: 4-bit packing).
       bits: 8 (one signed index per byte) or 4 (two per byte; s + 1 <= 7).
-      stochastic: unbiased stochastic rounding (the only mode ported).
+      stochastic: unbiased stochastic rounding (True) or round-to-nearest
+        (False).  ``compress_tree`` (kernel 5) honours it; the pmean
+        kernels (1-4), like the reference's Pallas route, always round
+        stochastically.
     """
 
     num_levels: int = 15

@@ -1,17 +1,19 @@
 // Hand-written Hopper (sm_90a) kernels for the Q-GenX exchange.
 //
-// One source for the four kernels on the data-parallel train step's
-// gradient exchange, sharing __device__ row helpers the way
-// repro/kernels/common.py is shared by the Pallas kernels:
+// One source for the five exchange kernels, sharing __device__ row
+// helpers the way repro/kernels/common.py is shared by the Pallas kernels:
 //
 //   qx_quantize                  <- repro/kernels/quantize.py::quantize_blocks
 //   qx_dequant_reduce_requantize <- repro/kernels/dequant_reduce.py::
 //                                     dequant_reduce_requantize_blocks
 //   qx_dequantize                <- repro/kernels/dequantize.py::dequantize_blocks
 //   qx_dequant_reduce            <- repro/kernels/dequant_reduce.py::dequant_reduce_blocks
+//   qx_segment_qdq               <- repro/kernels/segment_quantize.py::
+//                                     quantize_dequantize_segments
 //
-// Design (same for all four): one thread block per bucket row, the level
-// table (s + 2 <= 128 floats) staged in shared memory, a block reduction
+// Design (same for all five): one thread block per bucket row, the level
+// table (s + 2 <= 128 floats; kernel 5: the stacked [T, S_max] tables)
+// staged in shared memory, a block reduction
 // for the row norm, 16-byte loads and stores when the bucket width allows
 // (VEC = 4 coordinates per thread step), and the ragged row edge handled
 // here — no padding of rows to a tile multiple.  All four are bound by
@@ -22,9 +24,9 @@
 // lo) are IEEE round-to-nearest divisions (__fdiv_rn), products and sums
 // use the _rn intrinsics so nvcc cannot contract them into FMAs (the file
 // is also built with -fmad=false), and the K-mean is acc * (1/K) summed in
-// worker order — the Pallas kernels' arithmetic.  Indices, packed bytes
-// and L^inf norms therefore match the plain PyTorch versions bit for bit;
-// L^2 norms differ only in summation order.
+// worker order — the Pallas kernels' arithmetic.  Indices, packed bytes,
+// L^inf norms and kernel 5's estimates therefore match the plain PyTorch
+// versions bit for bit; L^2 norms differ only in summation order.
 //
 // Plain C interface (bound with ctypes): every entry point selects the
 // tensors' device, launches on PyTorch's current stream and returns the
@@ -39,6 +41,7 @@ namespace {
 
 constexpr int kMaxSymbols = 128;
 constexpr int kMaxThreads = 256;
+constexpr int kMaxTables = 32;  // kernel 5: level tables per launch
 
 // ---------------------------------------------------------------------------
 // Shared row helpers
@@ -319,6 +322,79 @@ __global__ void dequant_reduce_requantize_kernel(
                            num_symbols, s_red, out + row * pcols, onorms + row);
 }
 
+
+// Kernel 5: fused Q∘DEQ of one bucket row under its own level table.  The
+// row's table t = seg[row] is one of the T stacked tables (shared memory,
+// T * S_max floats); only the f32 estimate is written.  The bracket counts
+// the interior levels 1 .. ns[t] - 2 of table t — the reference's masked
+// compare over the union of levels, which never counts a row against
+// another table's entries or the 1.0 padding.  The clamp keeps a NaN
+// (as jnp.clip and torch.clamp do) so a non-finite row matches the plain
+// version; a table id outside [0, T) writes NaN over its row.
+struct SymbolCounts {
+  int v[kMaxTables];
+};
+
+template <int VEC, bool STOCHASTIC>
+__global__ void segment_qdq_kernel(const float* __restrict__ x,
+                                   const float* __restrict__ noise,
+                                   const float* __restrict__ tables,
+                                   const int* __restrict__ seg, int T, int s_max,
+                                   SymbolCounts ns, int bucket, bool q_is_inf,
+                                   float* __restrict__ out) {
+  extern __shared__ float4 s_dyn[];
+  float* s_tab = reinterpret_cast<float*>(s_dyn);
+  __shared__ float s_red[32];
+  for (int j = threadIdx.x; j < T * s_max; j += blockDim.x) s_tab[j] = tables[j];
+  __syncthreads();
+  const long long row = blockIdx.x;
+  const float* x_row = x + row * bucket;
+  float* out_row = out + row * bucket;
+  const int t = seg[row];
+  const int ngroups = bucket / VEC;
+  if (t < 0 || t >= T) {
+    for (int g = threadIdx.x; g < ngroups; g += blockDim.x) {
+      float v[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) v[e] = __int_as_float(0x7fc00000);
+      store_vec<VEC>(out_row + g * VEC, v);
+    }
+    return;
+  }
+  const float* lv = s_tab + t * s_max;
+  const int top = ns.v[t] - 1;  // interior levels are 1 .. top - 1
+  float part = 0.0f;
+  for (int g = threadIdx.x; g < ngroups; g += blockDim.x) {
+    float v[VEC];
+    load_vec<VEC>(x_row + g * VEC, v);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const float a = norm_term(v[e], q_is_inf);
+      part = q_is_inf ? nan_max(part, a) : __fadd_rn(part, a);
+    }
+  }
+  const float norm = finish_norm(block_reduce(part, q_is_inf, s_red), q_is_inf);
+  const float safe = norm > 0.0f ? norm : 1.0f;
+  for (int g = threadIdx.x; g < ngroups; g += blockDim.x) {
+    float v[VEC], r[VEC];
+    load_vec<VEC>(x_row + g * VEC, v);
+    if constexpr (STOCHASTIC) load_vec<VEC>(noise + row * bucket + g * VEC, r);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      float u = __fdiv_rn(fabsf(v[e]), safe);
+      u = u > 1.0f ? 1.0f : (u < 0.0f ? 0.0f : u);
+      int tau = 0;
+      for (int j = 1; j < top; ++j) tau += (u >= lv[j]) ? 1 : 0;
+      const float lo = lv[tau], hi = lv[tau + 1];
+      const float xi = __fdiv_rn(__fsub_rn(u, lo), __fsub_rn(hi, lo));
+      const bool up = STOCHASTIC ? (r[e] < xi) : (xi >= 0.5f);
+      const float q = lv[tau + (up ? 1 : 0)];
+      v[e] = __fmul_rn(v[e] < 0.0f ? -q : q, norm);
+    }
+    store_vec<VEC>(out_row + g * VEC, v);
+  }
+}
+
 int threads_for(int bucket, int vec) {
   int groups = bucket / vec;
   int t = ((groups + 31) / 32) * 32;
@@ -432,6 +508,45 @@ int qx_dequant_reduce_requantize(const int8_t* idx, const float* norms,
         <<<(unsigned)nb, threads, smem, s>>>(idx, norms, noise, levels, num_symbols, K, nb,
                                              bucket, q_is_inf != 0, inv_k, out, onorms);
   });
+  return cudaGetLastError();
+}
+
+int qx_segment_qdq(const float* x, const float* noise, const float* tables,
+                   const int* seg, int T, int s_max, const int* num_symbols,
+                   long long nb, int bucket, int q_is_inf, int stochastic, float* out,
+                   int device, void* stream) {
+  const int vec = pick_vec(bucket, false);
+  // the stacked tables are staged in dynamic shared memory (48 KB default cap)
+  const size_t smem = sizeof(float) * (size_t)T * (size_t)s_max;
+  if (T < 1 || T > kMaxTables || s_max < 2 || s_max > kMaxSymbols || nb < 0 ||
+      nb > 0x7fffffffLL || bucket <= 0 || smem > 48 * 1024 || (stochastic && !noise))
+    return cudaErrorInvalidValue;
+  SymbolCounts ns = {};
+  for (int t = 0; t < T; ++t) {
+    if (num_symbols[t] < 2 || num_symbols[t] > s_max) return cudaErrorInvalidValue;
+    ns.v[t] = num_symbols[t];
+  }
+  if (nb == 0) return cudaSuccess;
+  if (cudaError_t e = cudaSetDevice(device)) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int threads = threads_for(bucket, vec);
+  auto launch = [&](auto v, auto st) {
+    segment_qdq_kernel<decltype(v)::value, decltype(st)::value>
+        <<<(unsigned)nb, threads, smem, s>>>(x, noise, tables, seg, T, s_max, ns, bucket,
+                                             q_is_inf != 0, out);
+  };
+  using V4 = std::integral_constant<int, 4>;
+  using V2 = std::integral_constant<int, 2>;
+  using V1 = std::integral_constant<int, 1>;
+  if (stochastic) {
+    if (vec == 4) launch(V4{}, std::true_type{});
+    else if (vec == 2) launch(V2{}, std::true_type{});
+    else launch(V1{}, std::true_type{});
+  } else {
+    if (vec == 4) launch(V4{}, std::false_type{});
+    else if (vec == 2) launch(V2{}, std::false_type{});
+    else launch(V1{}, std::false_type{});
+  }
   return cudaGetLastError();
 }
 

@@ -1,0 +1,1 @@
+"""gan layer of the port (see the package docstring)."""

@@ -35,7 +35,7 @@ NVCC_FLAGS = (
     "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
 )
 KERNELS = ("quantize_blocks", "dequant_reduce_requantize_blocks",
-           "dequantize_blocks", "dequant_reduce_blocks")
+           "dequantize_blocks", "dequant_reduce_blocks", "quantize_dequantize_segments")
 
 _LAUNCHES = {name: 0 for name in KERNELS}
 _LIB = None
@@ -47,6 +47,7 @@ _SIGNATURES = {
     "qx_dequant_reduce": (_P, _P, _P, _I, _I, _LL, _I, _I, _F, _P, _I, _P),
     "qx_dequant_reduce_requantize": (_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _F,
                                      _P, _P, _I, _P),
+    "qx_segment_qdq": (_P, _P, _P, _P, _I, _I, _P, _LL, _I, _I, _I, _P, _I, _P),
 }
 
 

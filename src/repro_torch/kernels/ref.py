@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the exchange kernels' row math.
 
 Port of ``repro/kernels/common.py`` (``norm_rows``, ``quant_rows``,
-``dequant_rows``, ``pack4_rows``, ``unpack4_rows``) and of the K-mean
-``_mean_rows`` of ``repro/kernels/dequant_reduce.py``.  These follow the
+``dequant_rows``, ``pack4_rows``, ``unpack4_rows``,
+``segment_quant_dequant_rows``) and of the K-mean ``_mean_rows`` of
+``repro/kernels/dequant_reduce.py``.  These follow the
 Pallas kernels' arithmetic, not ``repro/kernels/ref.py``'s: the level
 bracket is found by compare-accumulate over the interior levels and the
 K-mean is ``acc * (1/K)`` (not ``mean``) — the two differ in ulps (C2 in
@@ -128,3 +129,53 @@ def dequant_reduce_requantize_blocks_plain(idx, norms, levels, noise, *,
     reduced = mean_rows(idx, norms.float(), lv, bits)
     signed, norms2 = quant_rows(reduced, lv, noise.float(), num_symbols, q_is_inf)
     return pack_payload(signed, bits), norms2
+
+
+# -- kernel 5: segment-fused quantize∘dequantize -----------------------------
+
+
+def segment_quant_dequant_rows(x: torch.Tensor, tables: torch.Tensor, seg: torch.Tensor,
+                               r, *, num_symbols: tuple, q_is_inf: bool,
+                               stochastic: bool = True) -> torch.Tensor:
+    """Fused Q∘DEQ of [rows, bucket] f32 with a per-row level table (port of
+    ``repro/kernels/common.py::segment_quant_dequant_rows``).
+
+    ``tables`` is the stacked ``[T, S_max]`` buffer (short tables padded
+    with 1.0), ``seg`` the [rows] table id of each row and ``num_symbols``
+    the live symbol count of each table.  The bracket counts the interior
+    levels ``1 .. num_symbols[t] - 2`` of the row's own table ``t``, which
+    is the reference's masked compare over the union of levels.  Rounding
+    is ``r < xi`` (stochastic) or ``xi >= 0.5`` (nearest, ``r`` unused);
+    the output is ``where(x < 0, -v, v) * norm``.
+    """
+    norms = norm_rows(x, q_is_inf)
+    safe = torch.where(norms > 0, norms, torch.ones_like(norms))
+    u = torch.clamp(x.abs() / safe[:, None], 0.0, 1.0)
+    seg = seg.long()
+    row_lv = tables[seg]  # [rows, S_max]: each row's own table
+    tau = torch.zeros(u.shape, dtype=torch.int64, device=x.device)
+    for j in range(1, tables.shape[1] - 1):
+        live = [t for t in range(len(num_symbols)) if j <= num_symbols[t] - 2]
+        if not live:
+            continue
+        hit = u >= row_lv[:, j, None]
+        if len(live) < len(num_symbols):
+            act = torch.zeros(seg.shape, dtype=torch.bool, device=x.device)
+            for t in live:
+                act |= seg == t
+            hit &= act[:, None]
+        tau += hit
+    lo = torch.gather(row_lv, 1, tau)
+    hi = torch.gather(row_lv, 1, tau + 1)
+    xi = (u - lo) / (hi - lo)
+    up = (r < xi) if stochastic else (xi >= 0.5)
+    vals = torch.gather(row_lv, 1, tau + up.long())
+    return torch.where(x < 0, -vals, vals) * norms[:, None]
+
+
+def quantize_dequantize_segments_plain(x2d, noise, tables, seg_ids, *, num_symbols,
+                                       q_is_inf, stochastic=True):
+    """Plain version of kernel 5 (``quantize_dequantize_segments``)."""
+    return segment_quant_dequant_rows(
+        x2d.float(), tables.float(), seg_ids, None if noise is None else noise.float(),
+        num_symbols=tuple(num_symbols), q_is_inf=q_is_inf, stochastic=stochastic)

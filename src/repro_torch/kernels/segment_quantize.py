@@ -1,0 +1,74 @@
+"""Kernel 5: segment-fused quantize∘dequantize, hand-written in CUDA for
+Hopper.
+
+Replaces ``repro/kernels/segment_quantize.py::quantize_dequantize_segments``
+(Pallas body ``_seg_qdq_kernel``), the kernel of ``compress_tree``: one
+launch over a planned flat buffer whose bucket rows each pick their level
+table, by segment id, from a stacked ``[T, S_max]`` table buffer.  Per
+row: the L^inf or L^2 norm, the level bracket in the row's own table,
+stochastic (``r < xi``) or nearest (``xi >= 0.5``) rounding, and the
+dequantized value ``sign * level * norm``.  The indices never leave
+registers; only the f32 estimate is written.
+
+Bound on the H100: device-memory traffic.  It reads x and the noise and
+writes the estimate, 12 B per coordinate (8 B with nearest rounding); at
+the tinyllama-1.1b planned buffer (1,100,048,384 coordinates) that is
+13.20 GB, 3.94 ms at 3.35 TB/s.  The design
+(``csrc/exchange_kernels.cu::segment_qdq_kernel``) gives each bucket row
+one thread block, stages the stacked tables in shared memory, reads x and
+the noise with 16-byte loads (the norm pass re-reads the row from L1/L2,
+not HBM) and writes the row once.
+
+CPU tensors go to the plain version :func:`quantize_dequantize_segments_plain`
+(same arithmetic, bit-identical); CUDA tensors launch the kernel or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import cuda
+from repro_torch.kernels.ref import quantize_dequantize_segments_plain  # noqa: F401
+
+
+def quantize_dequantize_segments(x2d: torch.Tensor, noise, tables: torch.Tensor,
+                                 seg_ids: torch.Tensor, *, num_symbols: tuple,
+                                 q_is_inf: bool, stochastic: bool = True) -> torch.Tensor:
+    """Fused Q∘DEQ of [nb, bucket] f32 under per-row level tables.
+
+    ``noise``: [nb, bucket] uniform [0, 1) (``None`` when
+    ``stochastic=False``); ``tables``: [T, S_max] f32; ``seg_ids``: [nb]
+    int32 table id per row; ``num_symbols``: live symbols per table.
+    Returns the [nb, bucket] f32 estimate.
+    """
+    nb, bucket = x2d.shape
+    num_symbols = tuple(int(n) for n in num_symbols)
+    T, s_max = tables.shape
+    if len(num_symbols) != T:
+        raise ValueError(f"{len(num_symbols)} symbol counts for {T} tables")
+    if any(n < 2 or n > s_max for n in num_symbols):
+        raise ValueError(f"num_symbols {num_symbols} outside [2, {s_max}]")
+    if tuple(seg_ids.shape) != (nb,):
+        raise ValueError(f"seg_ids must be [nb]={nb}, got {tuple(seg_ids.shape)}")
+    if stochastic:
+        if noise is None:
+            raise ValueError("stochastic rounding needs the uniform noise buffer")
+        if tuple(noise.shape) != (nb, bucket):
+            raise ValueError(f"noise shape {tuple(noise.shape)} != {(nb, bucket)}")
+    if x2d.device.type != "cuda":
+        return quantize_dequantize_segments_plain(
+            x2d, noise if stochastic else None, tables, seg_ids, num_symbols=num_symbols,
+            q_is_inf=q_is_inf, stochastic=stochastic)
+    dev = x2d.device
+    x = cuda.prepare(x2d, torch.float32, dev)
+    r = cuda.prepare(noise, torch.float32, dev) if stochastic else None
+    tab = cuda.prepare(tables, torch.float32, dev)
+    seg = cuda.prepare(seg_ids, torch.int32, dev)
+    out = torch.empty((nb, bucket), dtype=torch.float32, device=dev)
+    counts = (ctypes.c_int * T)(*num_symbols)
+    cuda.call("qx_segment_qdq", "quantize_dequantize_segments", dev, x.data_ptr(),
+              None if r is None else r.data_ptr(), tab.data_ptr(), seg.data_ptr(), T,
+              s_max, counts, nb, bucket, int(q_is_inf), int(stochastic), out.data_ptr())
+    return out

@@ -1,16 +1,22 @@
-"""The data-parallel Q-GenX train step (port of the qgenx ``de`` / ``optda``
-branches of ``repro/launch/steps.py::core_step``).
+"""The data-parallel train step (port of ``repro/launch/steps.py::core_step``:
+the adam-family and qgenx ``de`` / ``optda`` branches).
 
 One step on each worker:
 
-* ``de`` (Example 3.2): gradient at X_t -> exchange -> extrapolate to
-  X_{t+1/2} -> gradient there -> exchange -> commit (two exchanges).
-* ``optda`` (Example 3.3): extrapolate with the carried half-step mean
-  ``prev_half`` -> gradient at X_{t+1/2} -> exchange -> commit (one).
+* qgenx ``de`` (Example 3.2): gradient at X_t -> exchange -> extrapolate
+  to X_{t+1/2} -> gradient there -> exchange -> commit (two exchanges).
+* qgenx ``optda`` (Example 3.3): extrapolate with the carried half-step
+  mean ``prev_half`` -> gradient at X_{t+1/2} -> exchange -> commit (one).
+* ``extra_adam``: gradient -> exchange -> Adam extrapolation to
+  params_half -> gradient there -> exchange -> Adam commit from the
+  step's starting params (two exchanges).
+* ``optimistic_adam``: extrapolate with the previous half-step gradient
+  -> gradient -> exchange -> commit (one); ``adam``: gradient ->
+  exchange -> Adam step (one).
 
-The exchange is :class:`repro_torch.core.exchange.Exchange` (qgenx, or
-the exact ``none`` control); its quantize/dequantize steps run the CUDA
-kernels for CUDA tensors.  PyTorch runs eagerly, so the step mutates the
+The exchange is :class:`repro_torch.core.exchange.Exchange` (qgenx,
+layerwise, or the exact ``none`` control); its quantize/dequantize steps
+run the CUDA kernels for CUDA tensors.  PyTorch runs eagerly, so the step mutates the
 model's parameters in place (X_{t+1/2} while the second gradient is taken,
 then X_{t+1}) and returns the new optimizer and exchange states with the
 ``loss`` and ``wire_bytes`` metrics.  The guard, fault schedules,
@@ -25,6 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.exchange import Exchange
 from repro_torch.core.methods import get_method
+from repro_torch.optim import optimizers as opt
 from repro_torch.optim import qgenx as qgenx_opt
 from repro_torch.optim.optimizers import OptimizerConfig
 
@@ -54,7 +61,7 @@ def make_train_step(model, opt_cfg: OptimizerConfig, exchange: Exchange):
     ex_state, metrics)`` for this worker's ``batch`` shard; ``noise`` is
     this worker's noise source (:mod:`repro_torch.core.noise`)."""
     method = get_method(opt_cfg.method)
-    if method.name not in ("de", "optda"):
+    if opt_cfg.name == "qgenx" and method.name not in ("de", "optda"):
         raise ValueError(f"make_train_step supports qgenx methods 'de'/'optda', "
                          f"got {opt_cfg.method!r}")
     loss_fn = make_loss_fn(model)
@@ -67,8 +74,29 @@ def make_train_step(model, opt_cfg: OptimizerConfig, exchange: Exchange):
         grads = torch.autograd.grad(loss, params)
         return loss.detach(), list(grads)
 
-    def step(opt_state, ex_state, batch, noise):
-        st_in = ex_state
+    def adam_family_step(opt_state, ex_state, batch, noise):
+        name = opt_cfg.name
+        start = None
+        if name == "extra_adam":
+            _, g1 = grad_at(batch)
+            g1, ex_state = exchange.pmean_tree(g1, ex_state, noise)
+            half = opt.extrapolate(opt_cfg, params, opt_state, g1)
+            del g1
+        elif name == "optimistic_adam":
+            half = opt.extrapolate(opt_cfg, params, opt_state, opt_state.prev_half_grad)
+        if name != "adam":
+            # the commit steps from the starting params, not params_half
+            start = [p.detach().clone() for p in params]
+            _assign(params, half)
+            del half
+        loss, g2 = grad_at(batch)
+        g2, ex_state = exchange.pmean_tree(g2, ex_state, noise)
+        new_params, opt_state = opt.commit(opt_cfg, start if start is not None else params,
+                                           opt_state, g2)
+        _assign(params, new_params)
+        return loss, g2, opt_state, ex_state
+
+    def qgenx_step(opt_state, ex_state, batch, noise):
         if method.uses_prev_half:
             ghat1 = opt_state.prev_half
             _assign(params, qgenx_opt.extrapolate(opt_cfg, params, opt_state, ghat1, K))
@@ -90,9 +118,15 @@ def make_train_step(model, opt_cfg: OptimizerConfig, exchange: Exchange):
         new_params, opt_state = qgenx_opt.commit(opt_cfg, params, opt_state, ghat2, sq,
                                                  K, prev_half=prev_half)
         _assign(params, new_params)
+        return loss, g2, opt_state, ex_state
+
+    body = qgenx_step if opt_cfg.name == "qgenx" else adam_family_step
+
+    def step(opt_state, ex_state, batch, noise):
+        st_in = ex_state
+        loss, g2, opt_state, ex_state = body(opt_state, ex_state, batch, noise)
         loss = comm.all_reduce_mean(loss)
-        per_call = exchange.wire_bytes_tree(g2, K)
-        wire = per_call * (ex_state.step - st_in.step)
+        wire = exchange.wire_bytes_tree(g2, K) * (ex_state.step - st_in.step)
         return opt_state, ex_state, {"loss": loss, "wire_bytes": wire}
 
     return step

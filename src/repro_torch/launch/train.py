@@ -1,19 +1,22 @@
 """End-to-end training entry point of the port (``python -m repro_torch.launch.train``).
 
-Trains a dense decoder with the paper's adaptive Q-GenX optimizer and the
-quantized gradient exchange on ``cuda`` (default) or, when asked,
-``--device cpu``.  One process is one worker; for K > 1 workers launch it
+Trains a dense decoder with ExtraAdam (the default, as in the reference
+CLI), Adam, optimistic Adam or the paper's adaptive Q-GenX optimizer, and
+the quantized gradient exchange (``--compressor qgenx | layerwise |
+none``), on ``cuda`` (default) or, when asked, ``--device cpu``.  One process is one worker; for K > 1 workers launch it
 under ``torchrun`` (NCCL on the card, gloo on the CPU), which sets the
 rank and world size read here::
 
     python -m repro_torch.launch.train --arch tinyllama-1.1b --reduced \\
         --steps 20 --batch 8 --seq 128 --compression int8
+    python -m repro_torch.launch.train --reduced --optimizer qgenx --method optda \\
+        --compression int8
     torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
-        --arch tinyllama-1.1b --reduced --compression int4 --compress-mode gather
+        --arch tinyllama-1.1b --reduced --compression int4 --compressor layerwise
 
-Unlike the reference CLI, the exchange runs at K = 1 too whenever
-``--compression`` is not ``none`` (the world-size-1 communicator), so one
-card drives every exchange kernel.
+Unlike the reference CLI, the exchange runs at K = 1 too whenever there is
+something to compress (the world-size-1 communicator), so one card drives
+every exchange kernel.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch.distributed as dist
 
 from repro_torch.configs.registry import ARCHS, get_config
 from repro_torch.core.exchange import (
+    COMPRESSORS,
     ExchangeConfig,
     ProcessGroupComm,
     SingleWorker,
@@ -39,20 +43,28 @@ from repro_torch.data.pipeline import make_pipeline, to_device
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.model import build
-from repro_torch.optim import qgenx as qgenx_opt
-from repro_torch.optim.optimizers import OptimizerConfig
+from repro_torch.optim import optimizers as opt
+from repro_torch.optim.optimizers import OPTIMIZERS, OptimizerConfig
 
 
 def build_exchange_config(args) -> ExchangeConfig:
-    """CLI flags -> ExchangeConfig: ``--compression none`` is the exact
-    fp32 control (compressor none); int8 / int4 is the qgenx compressor
-    with the reference's bucket 512, s = 15 for int8 and s = 5 for int4,
-    uniform levels."""
+    """CLI flags -> ExchangeConfig.  ``--compression`` int8 / int4 is the
+    reference's quantizer (bucket 512, s = 15 for int8 and s = 5 for int4,
+    uniform levels): qgenx's, or layerwise's low-bit one for large leaves.
+    qgenx with ``--compression none`` is the exact f32 control (compressor
+    none).  A pair that contradicts itself raises ``ValueError``:
+    ``--compressor none`` with a quantizer, or layerwise without one."""
+    if args.compressor == "none" and args.compression != "none":
+        raise ValueError(f"--compressor none sends f32: drop --compression "
+                         f"{args.compression}")
+    if args.compressor == "layerwise" and args.compression == "none":
+        raise ValueError("--compressor layerwise needs --compression int8 or int4 "
+                         "(its quantizer for leaves above the threshold)")
     if args.compression == "none":
         return ExchangeConfig(compressor="none", mode=args.compress_mode)
     bits = 8 if args.compression == "int8" else 4
     quant = QuantConfig(num_levels=15 if bits == 8 else 5, bits=bits, bucket_size=512)
-    return ExchangeConfig(compressor="qgenx", quant=quant, mode=args.compress_mode)
+    return ExchangeConfig(compressor=args.compressor, quant=quant, mode=args.compress_mode)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -64,9 +76,13 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=8, help="global batch (all workers)")
     ap.add_argument("--seq", type=int, default=128)
-    ap.add_argument("--method", default="de", choices=("de", "optda"))
+    ap.add_argument("--lr", type=float, default=3e-4, help="adam family learning rate")
+    ap.add_argument("--optimizer", default="extra_adam", choices=OPTIMIZERS)
+    ap.add_argument("--method", default="de", choices=("de", "optda"),
+                    help="qgenx oracle schedule")
     ap.add_argument("--gamma-scale", type=float, default=0.02)
     ap.add_argument("--compression", default="none", choices=("none", "int8", "int4"))
+    ap.add_argument("--compressor", default="qgenx", choices=COMPRESSORS)
     ap.add_argument("--compress-mode", default="two_phase", choices=("two_phase", "gather"))
     ap.add_argument("--device", default="cuda", help="cuda (default) | cpu")
     ap.add_argument("--seed", type=int, default=0)
@@ -101,9 +117,9 @@ def run(args, log=print) -> dict:
         if args.batch % world:
             raise ValueError(f"--batch {args.batch} does not split over {world} workers")
         model = build(cfg, seed=args.seed, device=device)
-        opt_cfg = OptimizerConfig(gamma_scale=args.gamma_scale,
-                                  method=args.method)
-        opt_state = qgenx_opt.init_qgenx_state(opt_cfg, model.param_leaves())
+        opt_cfg = OptimizerConfig(name=args.optimizer, lr=args.lr,
+                                  gamma_scale=args.gamma_scale, method=args.method)
+        opt_state = opt.init_state(opt_cfg, model.param_leaves())
         ex = make_exchange(build_exchange_config(args), comm)
         ex_state = ex.init_state(device)
         step_fn = make_train_step(model, opt_cfg, ex)
@@ -112,8 +128,9 @@ def run(args, log=print) -> dict:
         rows = slice(rank * args.batch // world, (rank + 1) * args.batch // world)
         if rank == 0:
             log(f"[train] arch={cfg.name} params={cfg.param_count()} dtype={cfg.dtype} "
-                f"device={device} workers={world} method={args.method} "
-                f"compressor={ex.cfg.compressor} compression={args.compression} "
+                f"device={device} workers={world} optimizer={args.optimizer} "
+                + (f"method={args.method} " if args.optimizer == "qgenx" else "")
+                + f"compressor={ex.cfg.compressor} compression={args.compression} "
                 f"mode={ex.cfg.mode}")
         out = {"loss": [], "wire_bytes": [], "step_s": []}
         for step in range(args.steps):

@@ -3,9 +3,10 @@
 Imported by ``torch.multiprocessing`` ``spawn`` children (never fork), so
 it imports torch and the port only.  Each worker joins a process group on
 a ``FileStore``, runs every case's quantized mean on its own vector with
-the noise it was handed, saves the result and destroys the group.
-:func:`run_group` starts the workers, joins them under a hard timeout and
-returns their outputs.
+the noise it was handed (:func:`run`; :func:`run_layerwise` takes the
+layerwise ``Exchange.pmean_tree`` of a small pytree instead), saves the
+result and destroys the group.  :func:`run_group` starts the workers,
+joins them under a hard timeout and returns their outputs.
 """
 
 import numpy as np
@@ -45,16 +46,65 @@ def run(rank, world, store_path, in_path, out_dir, cases, backend, device):
         dist.destroy_process_group()
 
 
-def run_group(K, workdir, inputs, cases, backend="gloo", device="cpu", while_running=None):
-    """Run K workers over ``inputs`` (keys ``x_/n1_/n2_{case}_{rank}``);
-    returns ``outs[case][rank]`` and ``while_running()``'s result (called
-    in this process while the workers run)."""
+LAYERWISE_TREE = {"a": (40, 50), "b": (300,), "c": (30, 70), "d": (7, 11)}
+LAYERWISE_THRESHOLD = 1000  # a and c take the low-bit quantizer, b and d int8
+
+
+def layerwise_config(mode, bits):
+    """The layerwise exchange of a case: int4 (s = 5) or int8 (s = 15) at
+    bucket 256 for the leaves above the threshold, the default int8 at
+    bucket 512 for the rest."""
+    from repro_torch.core.exchange import ExchangeConfig
+    from repro_torch.core.quantization import QuantConfig
+
+    quant = QuantConfig(num_levels=15 if bits == 8 else 5, bits=bits, bucket_size=256)
+    return ExchangeConfig(compressor="layerwise", quant=quant, mode=mode,
+                          layerwise_threshold=LAYERWISE_THRESHOLD)
+
+
+def run_layerwise(rank, world, store_path, in_path, out_dir, cases, backend, device):
+    """Each case ``(mode, bits)``: the layerwise ``pmean_tree`` of this
+    worker's tree (keys ``{leaf}_{case}_{rank}``), with its noise draws
+    ``noise_{case}_{rank}_{j}`` in the order the exchange asks for them;
+    saves the mean's leaves concatenated in tree order."""
+    import torch
+
+    from repro_torch.core.exchange import ProcessGroupComm, make_exchange
+    from repro_torch.core.noise import ReplayNoise
+
+    dev = torch.device(device)
+    data = np.load(in_path)
+    dist.init_process_group(backend, store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        for i, case in enumerate(cases):
+            ex = make_exchange(layerwise_config(*case), ProcessGroupComm())
+            tree = {name: torch.from_numpy(data[f"{name}_{i}_{rank}"]).to(dev)
+                    for name in LAYERWISE_TREE}
+            draws = sorted((k for k in data.files if k.startswith(f"noise_{i}_{rank}_")),
+                           key=lambda k: int(k.rsplit("_", 1)[1]))
+            noise = ReplayNoise([data[k] for k in draws])
+            mean, _ = ex.pmean_tree(tree, ex.init_state(dev), noise)
+            if noise.remaining:
+                raise RuntimeError("not every noise draw was used")
+            np.save(f"{out_dir}/out_{i}_{rank}.npy",
+                    np.concatenate([mean[k].cpu().numpy().ravel() for k in sorted(mean)]))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_group(K, workdir, inputs, cases, backend="gloo", device="cpu", while_running=None,
+              target=run):
+    """Run K workers of ``target`` over ``inputs`` (for :func:`run`, keys
+    ``x_/n1_/n2_{case}_{rank}``); returns ``outs[case][rank]`` and
+    ``while_running()``'s result (called in this process while the
+    workers run)."""
     import torch.multiprocessing as mp
 
     workdir.mkdir(parents=True, exist_ok=True)
     np.savez(workdir / "inputs.npz", **inputs)
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=run, args=(r, K, str(workdir / "store"),
+    procs = [ctx.Process(target=target, args=(r, K, str(workdir / "store"),
                                            str(workdir / "inputs.npz"), str(workdir),
                                            cases, backend, device))
              for r in range(K)]

@@ -49,7 +49,7 @@ def test_constructors_take_no_default_device(make):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(compressor="randk"), dict(compressor="layerwise", quant=Q8),
+    dict(compressor="randk"), dict(compressor="ef-randk"),
     dict(compressor="ef21-topk"), dict(compressor="qgenx"),
     dict(quant=Q8, mode="leafwise"), dict(quant=Q8, level_schedule="qada"),
     dict(quant=Q8, sync_every=2), dict(quant=Q8, recenter_every=3),
@@ -64,8 +64,8 @@ def test_unported_exchange_options_are_rejected(kwargs):
 
 
 def test_unported_optimizer_and_step_options_are_rejected():
-    with pytest.raises(ValueError, match="not ported"):
-        OptimizerConfig(name="extra_adam")
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        OptimizerConfig(name="sgd")
     model = build(get_config("tinyllama-1.1b").reduced(), device="cpu")
     ex = make_exchange(ExchangeConfig(quant=Q8))
     with pytest.raises(TypeError, match="guard"):
@@ -73,7 +73,7 @@ def test_unported_optimizer_and_step_options_are_rejected():
     with pytest.raises(TypeError, match="fault_spec"):
         make_train_step(model, OptimizerConfig(), ex, fault_spec="nan@1")
     with pytest.raises(ValueError, match="da"):
-        make_train_step(model, OptimizerConfig(method="da"), ex)
+        make_train_step(model, OptimizerConfig(name="qgenx", method="da"), ex)
 
 
 @pytest.mark.parametrize("compression,compressor,bits", [
@@ -86,7 +86,17 @@ def test_compression_flag_picks_the_compressor(compression, compressor, bits):
     assert (cfg.quant.bits if cfg.quant else None) == bits
 
 
-@pytest.mark.parametrize("argv", [["--compressor", "none"], ["--optimizer", "qgenx"],
+@pytest.mark.parametrize("argv", [
+    ["--compressor", "none", "--compression", "int8"],
+    ["--compressor", "none", "--compression", "int4"],
+    ["--compressor", "layerwise"],
+])
+def test_contradictory_compressor_flags_raise(argv):
+    with pytest.raises(ValueError, match="--compression"):
+        train.build_exchange_config(train.parser().parse_args(argv))
+
+
+@pytest.mark.parametrize("argv", [["--compressor", "randk"], ["--optimizer", "sgd"],
                                   ["--repeat-batch"]])
 def test_train_cli_has_no_unported_flags(argv, capsys):
     with pytest.raises(SystemExit):
@@ -120,7 +130,7 @@ def test_replay_noise_checks_shape_and_count():
 def test_train_cli_on_cpu(mode, bits, method, capsys):
     out = train.main(["--reduced", "--steps", "2", "--batch", "4", "--seq", "16",
                       "--compression", f"int{bits}", "--compress-mode", mode,
-                      "--method", method, "--device", "cpu"])
+                      "--optimizer", "qgenx", "--method", method, "--device", "cpu"])
     assert all(math.isfinite(v) for v in out["loss"])
     reduced = get_config("tinyllama-1.1b").reduced()
     n = sum(p.numel() for p in build(reduced, device="cpu").param_leaves())

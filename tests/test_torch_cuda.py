@@ -19,6 +19,7 @@ from repro_torch.kernels.dequant_reduce import (
 )
 from repro_torch.kernels.dequantize import dequantize_blocks
 from repro_torch.kernels.quantize import quantize_blocks
+from repro_torch.kernels.segment_quantize import quantize_dequantize_segments
 
 pytestmark = pytest.mark.gpu
 
@@ -58,7 +59,42 @@ def test_kernels_match_plain_versions(dev, bits, K):
                                                          q_is_inf=True, bits=bits)
     assert torch.equal(ok, op) and torch.equal(onk, onp)
     after = cuda.launch_counts()
-    assert all(after[k] - before[k] == 1 for k in after)
+    assert all(after[k] - before[k] == 1 for k in ("quantize_blocks", "dequantize_blocks",
+                                                   "dequant_reduce_blocks",
+                                                   "dequant_reduce_requantize_blocks"))
+
+
+@pytest.mark.parametrize("stochastic", [True, False])
+@pytest.mark.parametrize("q_is_inf", [True, False])
+@pytest.mark.parametrize("T", [1, 2, 3])
+def test_segment_kernel_matches_plain_version(dev, T, q_is_inf, stochastic):
+    """Kernel 5 over T stacked tables with mixed symbol counts, an odd row
+    count, zero rows and a NaN row: bit-equal for q = inf, rtol 1e-6 for
+    q = 2 (the L^2 sum's order)."""
+    from repro_torch.core.exchange_plan import stack_level_tables
+    from repro_torch.core.quantization import exponential_levels
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(T * 4 + 2 * q_is_inf + stochastic)
+    nb, bucket = 37, 512
+    tables, ns = stack_level_tables([uniform_levels(15, dev), uniform_levels(5, dev),
+                                     exponential_levels(3, dev)][:T])
+    x = torch.randn((nb, bucket), generator=gen, device=dev) * 3
+    x[[0, 17]] = 0
+    x[5, 9] = float("nan")
+    r = torch.rand((nb, bucket), generator=gen, device=dev)
+    seg = torch.randint(0, T, (nb,), generator=gen, device=dev, dtype=torch.int32)
+    kw = dict(num_symbols=ns, q_is_inf=q_is_inf, stochastic=stochastic)
+    before = cuda.launch_counts()["quantize_dequantize_segments"]
+    got = quantize_dequantize_segments(x, r if stochastic else None, tables, seg, **kw)
+    want = ref.quantize_dequantize_segments_plain(x, r, tables, seg, **kw)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts()["quantize_dequantize_segments"] == before + 1
+    if q_is_inf:
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    else:
+        assert torch.allclose(got, want, rtol=1e-6, atol=0, equal_nan=True)
 
 
 def test_nccl_exchange_matches_gloo(tmp_path):

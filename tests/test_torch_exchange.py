@@ -14,6 +14,14 @@ Tolerance: rtol 1e-6, atol 1e-6 on the f32 mean (the reference's own bar
 for f32 kernel outputs; the interpreted K-mean differs from the port's in
 the last ulp, see test_torch_kernels.py), and the result must be
 identical on every worker.
+
+The layerwise compressor's ``Exchange.pmean_tree`` (one qgenx exchange
+per plan segment, each with its own quantizer and level table, the noise
+keyed ``fold_in(key, seg.key_tag)``) is held to the reference's
+``Exchange.pmean_tree`` the same way, on a pytree with leaves on both
+sides of the threshold and of different scales: bit for bit at K = 1
+(q = inf: the same arithmetic on the same inputs, and the mean of one
+worker is that worker's estimate), rtol 1e-6 / atol 1e-6 at K = 2.
 """
 
 import math
@@ -24,9 +32,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.exchange import ExchangeConfig as JaxExchangeConfig
 from repro.core.exchange import _qgenx_pmean
+from repro.core.exchange import make_exchange as jax_make_exchange
 from repro.core.quantization import QuantConfig as JaxQuant, uniform_levels as jax_levels
-from repro_torch.core.exchange import SingleWorker, qgenx_pmean
+from repro_torch.core.exchange import SingleWorker, make_exchange, qgenx_pmean
 from repro_torch.core.noise import ReplayNoise
 from repro_torch.core.quantization import QuantConfig, uniform_levels
 
@@ -106,3 +116,94 @@ def test_exchange_matches_reference_gloo_workers(K, tmp_path):
     outs, refs = _torch_exchange_worker.run_group(
         K, tmp_path, inputs, CASES, while_running=lambda: _reference(K, K, inputs))
     _check(outs, refs)
+
+
+LAYERWISE_CASES = [("two_phase", 4), ("gather", 4), ("two_phase", 8)]  # (mode, low bits)
+
+
+def _layerwise_inputs(K, seed):
+    """Every case's per-worker trees (each leaf at its own scale) and the
+    reference's noise for worker k: per plan segment in order,
+    fold_in(fold_in(key, seg.key_tag), k) -> split -> the quantize draw
+    (and, two_phase, the re-quantize draw)."""
+    rng = np.random.RandomState(seed)
+    key = jax.random.PRNGKey(seed)
+    leaves = _torch_exchange_worker.LAYERWISE_TREE
+    inputs = {}
+    for i, (mode, bits) in enumerate(LAYERWISE_CASES):
+        jex = jax_make_exchange(_jax_layerwise_config(mode, bits))
+        shapes = [jax.ShapeDtypeStruct(shape, jnp.float32)
+                  for shape in (leaves[name] for name in sorted(leaves))]
+        plan = jex.compressor.plan_for(shapes, jex.cfg, K, "pmean")
+        for k in range(K):
+            for j, name in enumerate(sorted(leaves)):
+                scale = 10.0 ** (j - 2)
+                inputs[f"{name}_{i}_{k}"] = (rng.randn(*leaves[name]) * scale).astype(np.float32)
+            draws = []
+            for seg in plan.segments:
+                bucket = seg.quant.bucket_size
+                rows = seg.padded // bucket
+                k1, k2 = jax.random.split(jax.random.fold_in(
+                    jax.random.fold_in(key, seg.key_tag), k))
+                draws.append(jax.random.uniform(k1, (rows, bucket)))
+                if mode == "two_phase":
+                    draws.append(jax.random.uniform(k2, (rows // K, bucket)))
+            for j, d in enumerate(draws):
+                inputs[f"noise_{i}_{k}_{j}"] = np.asarray(d)
+        assert len(plan.segments) == 2  # both size groups exist
+    return inputs
+
+
+def _jax_layerwise_config(mode, bits):
+    port = _torch_exchange_worker.layerwise_config(mode, bits)
+    q = port.quant
+    return JaxExchangeConfig(
+        compressor="layerwise", mode=mode, use_pallas=True, axis_name="data",
+        layerwise_threshold=port.layerwise_threshold,
+        quant=JaxQuant(num_levels=q.num_levels, bits=q.bits, bucket_size=q.bucket_size))
+
+
+def _layerwise_reference(K, seed, inputs):
+    """The reference pmean_tree's per-worker means (leaves concatenated in
+    tree order) for every case."""
+    key = jax.random.PRNGKey(seed)
+    leaves = _torch_exchange_worker.LAYERWISE_TREE
+    refs = []
+    for i, (mode, bits) in enumerate(LAYERWISE_CASES):
+        jex = jax_make_exchange(_jax_layerwise_config(mode, bits))
+        state = jex.init_state()
+        trees = {name: jnp.asarray(np.stack([inputs[f"{name}_{i}_{k}"] for k in range(K)]))
+                 for name in leaves}
+        mean = jax.vmap(lambda t: jex.pmean_tree(t, state, key)[0], axis_name="data")(trees)
+        refs.append(np.concatenate([np.asarray(mean[name]).reshape(K, -1)
+                                    for name in sorted(leaves)], axis=1))
+    return refs
+
+
+def test_layerwise_pmean_tree_matches_reference_one_worker():
+    inputs = _layerwise_inputs(1, seed=3)
+    refs = _layerwise_reference(1, 3, inputs)
+    leaves = _torch_exchange_worker.LAYERWISE_TREE
+    for i, case in enumerate(LAYERWISE_CASES):
+        ex = make_exchange(_torch_exchange_worker.layerwise_config(*case))
+        tree = {name: torch.from_numpy(inputs[f"{name}_{i}_0"]) for name in leaves}
+        draws = sorted((k for k in inputs if k.startswith(f"noise_{i}_0_")),
+                       key=lambda k: int(k.rsplit("_", 1)[1]))
+        noise = ReplayNoise([inputs[k] for k in draws])
+        mean, state = ex.pmean_tree(tree, ex.init_state("cpu"), noise)
+        assert noise.remaining == 0 and state.step == 1
+        got = np.concatenate([mean[name].numpy().ravel() for name in sorted(leaves)])
+        np.testing.assert_array_equal(got, refs[i][0], err_msg=f"case {case}")
+
+
+def test_layerwise_pmean_tree_matches_reference_gloo_workers(tmp_path):
+    K = 2
+    inputs = _layerwise_inputs(K, seed=4)
+    outs, refs = _torch_exchange_worker.run_group(
+        K, tmp_path, inputs, LAYERWISE_CASES, target=_torch_exchange_worker.run_layerwise,
+        while_running=lambda: _layerwise_reference(K, 4, inputs))
+    for i, ref in enumerate(refs):
+        for k, out in enumerate(outs[i]):
+            np.testing.assert_allclose(out, ref[k], rtol=1e-6, atol=1e-6,
+                                       err_msg=f"case {LAYERWISE_CASES[i]} worker {k}")
+            np.testing.assert_array_equal(out, outs[i][0])  # replicated

@@ -18,7 +18,22 @@ Tolerances (f32; the two frameworks sum matmuls in different orders):
   decision where the noise sits within an ulp of the threshold, so the
   loss is held to rtol 1e-5 and the params to rtol 1e-5 / atol 1e-6 on all
   but 1e-5 of the coordinates, with every coordinate within one
-  quantization step's update.
+  quantization step's update;
+* ``extra_adam`` steps (exact ``none`` exchange, and the layerwise int4 /
+  int8 two_phase exchange with the noise replayed): loss rtol 1e-5, params
+  rtol 1e-5 / atol 1e-6 on all but 1e-4 of the coordinates, and every
+  coordinate within 2 lr.  Adam divides each gradient coordinate by its
+  own magnitude (plus eps 1e-8), so where the gradient at params_half is
+  only a few times eps (a few coordinates in a million), the frameworks'
+  different summation orders change the update by a few percent of lr;
+  the commit's direction is at most 1 in magnitude, so no coordinate can
+  move by more than 2 lr (a flipped sign, or a flipped rounding in the
+  compressed exchange);
+* the adam family's update rules on random pytrees: rtol 1e-6 with an
+  atol 1e-8 floor.  The global-norm clip sums in another order, which
+  moves each update by about an ulp of its size (lr = 3e-3), and a
+  coordinate that the updates bring near zero keeps that absolute error
+  (a few 1e-10 per step).
 """
 
 import dataclasses
@@ -45,7 +60,7 @@ from repro_torch.core.quantization import QuantConfig
 from repro_torch.data.pipeline import make_pipeline, to_device
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.model import build
-from repro_torch.optim import qgenx as qgenx_opt
+from repro_torch.optim import optimizers as port_opt
 from repro_torch.optim.optimizers import OptimizerConfig
 
 BATCH, SEQ, GAMMA = 4, 16, 0.02
@@ -75,9 +90,9 @@ def _port_model(params_np):
     return params_from_jax(params_np, build(cfg, device="cpu"))
 
 
-def _run_reference(model, params_np, ex_cfg, method, batches, keys):
+def _run_reference(model, params_np, ex_cfg, method, batches, keys, name="qgenx"):
     mesh = Mesh(np.array(jax.devices()[:1]), ("data",))
-    opt_cfg = jax_opt.OptimizerConfig(name="qgenx", gamma_scale=GAMMA, method=method)
+    opt_cfg = jax_opt.OptimizerConfig(name=name, gamma_scale=GAMMA, method=method)
     params = jax.tree_util.tree_map(jnp.asarray, params_np)
     opt_state = jax_opt.init_state(opt_cfg, params)
     ex = jax_make_exchange(ex_cfg)
@@ -93,12 +108,12 @@ def _run_reference(model, params_np, ex_cfg, method, batches, keys):
     return losses, wires, [np.asarray(l) for l in jax.tree_util.tree_leaves(params)]
 
 
-def _run_port(params_np, ex_cfg, method, batches, noise=None):
+def _run_port(params_np, ex_cfg, method, batches, noise=None, name="qgenx"):
     model = _port_model(params_np)
-    opt_cfg = OptimizerConfig(name="qgenx", gamma_scale=GAMMA, method=method)
+    opt_cfg = OptimizerConfig(name=name, gamma_scale=GAMMA, method=method)
     ex = make_exchange(ex_cfg)
     step = make_train_step(model, opt_cfg, ex)
-    opt_state = qgenx_opt.init_qgenx_state(opt_cfg, model.param_leaves())
+    opt_state = port_opt.init_state(opt_cfg, model.param_leaves())
     ex_state = ex.init_state("cpu")
     losses, wires = [], []
     for b in batches:
@@ -155,6 +170,17 @@ def _replayed_noise(key, n_live, bucket, calls):
     return ReplayNoise(draws)
 
 
+def _assert_adam_close(tp, jp, lr):
+    """Params within rtol 1e-5 / atol 1e-6 on all but 1e-4 of the
+    coordinates, every coordinate within 2 lr (see the module docstring)."""
+    total = sum(a.size for a in jp)
+    off = 0
+    for a, b in zip(tp, jp):
+        off += int((~np.isclose(a, b, rtol=1e-5, atol=1e-6)).sum())
+        assert np.abs(a - b).max() <= 2 * lr
+    assert off <= 1e-4 * total, f"{off} of {total} coordinates off"
+
+
 def test_int8_two_phase_step_with_replayed_noise(reference):
     model, params_np = reference
     batches = _batches(1)
@@ -190,3 +216,121 @@ def test_reduced_config_matches_reference():
         assert getattr(got, f.name) == getattr(want, f.name), f.name
     full = get_config("tinyllama-1.1b")
     assert full.param_count() == jax_get_config("tinyllama-1.1b").param_count()
+
+
+def test_extra_adam_exact_exchange_step_matches(reference):
+    model, params_np = reference
+    batches = _batches(1)
+    keys = [jax.random.PRNGKey(3)]
+    jl, jw, jp = _run_reference(model, params_np, JaxExchangeConfig(compressor="none"),
+                                "de", batches, keys, name="extra_adam")
+    tl, tw, tp = _run_port(params_np, ExchangeConfig(compressor="none"), "de", batches,
+                           name="extra_adam")
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    assert tw == jw
+    _assert_adam_close(tp, jp, OptimizerConfig().lr)
+
+
+def _layerwise_noise(key, plan, bucket, calls):
+    """The reference's layerwise noise at K = 1: per exchange key, per plan
+    segment in order, fold_in(key, seg.key_tag), then the worker fold and
+    the quantize / re-quantize split."""
+    draws = []
+    for k in jax.random.split(key)[:calls]:
+        for seg in plan.segments:
+            rows = seg.padded // bucket
+            a, b = jax.random.split(jax.random.fold_in(jax.random.fold_in(k, seg.key_tag), 0))
+            draws += [np.asarray(jax.random.uniform(a, (rows, bucket))),
+                      np.asarray(jax.random.uniform(b, (rows, bucket)))]
+    return ReplayNoise(draws)
+
+
+def test_extra_adam_layerwise_step_with_replayed_noise(reference):
+    model, params_np = reference
+    batches = _batches(1)
+    key = jax.random.PRNGKey(44)
+    jcfg = JaxExchangeConfig(compressor="layerwise", mode="two_phase", use_pallas=True,
+                             quant=JaxQuant(num_levels=5, bits=4, bucket_size=512))
+    tcfg = ExchangeConfig(compressor="layerwise", mode="two_phase",
+                          quant=QuantConfig(num_levels=5, bits=4, bucket_size=512))
+    jl, jw, jp = _run_reference(model, params_np, jcfg, "de", batches, [key],
+                                name="extra_adam")
+    leaves = [torch.from_numpy(np.asarray(a)) for a in jax.tree_util.tree_leaves(params_np)]
+    ex = make_exchange(tcfg)
+    plan = ex.plan_for(leaves)
+    assert [s.quant.bits for s in plan.segments] == [4, 8]  # both size groups exist
+    noise = _layerwise_noise(key, plan, 512, calls=2)
+    tl, tw, tp = _run_port(params_np, tcfg, "de", batches, noise, name="extra_adam")
+    assert noise.remaining == 0
+    assert tw == jw
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    _assert_adam_close(tp, jp, OptimizerConfig().lr)
+
+
+@pytest.mark.parametrize("axis_size", [1, 2, 8])
+@pytest.mark.parametrize("mode", ["gather", "two_phase"])
+def test_layerwise_wire_bytes_match(reference, mode, axis_size):
+    _, params_np = reference
+    jleaves = jax.tree_util.tree_leaves(params_np)
+    tleaves = [torch.from_numpy(np.asarray(a)) for a in jleaves]
+    for kw in (dict(), dict(quant_small=(8, 7)), dict(layerwise_threshold=1000)):
+        jkw = dict(kw)
+        tkw = dict(kw)
+        if "quant_small" in kw:
+            jkw["quant_small"] = JaxQuant(num_levels=7, bits=8, bucket_size=256)
+            tkw["quant_small"] = QuantConfig(num_levels=7, bits=8, bucket_size=256)
+        jex = jax_make_exchange(JaxExchangeConfig(compressor="layerwise", mode=mode, **jkw))
+        tex = make_exchange(ExchangeConfig(compressor="layerwise", mode=mode, **tkw))
+        assert tex.wire_bytes_tree(tleaves, axis_size) == jex.wire_bytes_tree(jleaves,
+                                                                              axis_size)
+        assert tex.compress_wire_bytes_tree(tleaves) == jex.compress_wire_bytes_tree(jleaves)
+        n = sum(a.size for a in jleaves)
+        assert tex.wire_bytes(n, axis_size) == jex.wire_bytes(n, axis_size)
+        assert tex.compress_wire_bytes(n) == jex.compress_wire_bytes(n)
+
+
+def _random_tree(rng, scale=1.0):
+    return {"w": (rng.randn(33, 17) * scale).astype(np.float32),
+            "blocks": [{"b": (rng.randn(17) * scale).astype(np.float32),
+                        "k": (rng.randn(4, 5, 6) * scale).astype(np.float32)}] * 2,
+            "tiny": (rng.randn(3) * 1e-9 * scale).astype(np.float32)}
+
+
+@pytest.mark.parametrize("name", ["adam", "extra_adam", "optimistic_adam"])
+def test_adam_family_matches_reference(name):
+    """Several steps of each update rule on random pytrees (weight decay and
+    clipping on), every intermediate held to the reference's."""
+    rng = np.random.RandomState(0)
+    kw = dict(name=name, lr=3e-3, weight_decay=0.01, grad_clip=5.0)
+    jcfg, tcfg = jax_opt.OptimizerConfig(**kw), OptimizerConfig(**kw)
+    params_np = _random_tree(rng)
+    jparams = jax.tree_util.tree_map(jnp.asarray, params_np)
+    tparams = jax.tree_util.tree_map(torch.from_numpy, params_np)
+    jstate, tstate = jax_opt.init_state(jcfg, jparams), port_opt.init_state(tcfg, tparams)
+
+    def check(t, j):
+        for a, b in zip(jax.tree_util.tree_leaves(jax.tree_util.tree_map(
+                lambda x: x.numpy(), t)), jax.tree_util.tree_leaves(j)):
+            np.testing.assert_allclose(a, np.asarray(b), rtol=1e-6, atol=1e-8)
+
+    for _ in range(4):
+        g1, g2 = _random_tree(rng, 3.0), _random_tree(rng, 3.0)
+        j1 = jax.tree_util.tree_map(jnp.asarray, g1)
+        j2 = jax.tree_util.tree_map(jnp.asarray, g2)
+        t1 = jax.tree_util.tree_map(torch.from_numpy, g1)
+        t2 = jax.tree_util.tree_map(torch.from_numpy, g2)
+        if name == "adam":
+            jparams, jstate = jax_opt.adam_step(jcfg, jparams, jstate, j2)
+            tparams, tstate = port_opt.adam_step(tcfg, tparams, tstate, t2)
+        else:
+            jg = j1 if name == "extra_adam" else jstate.prev_half_grad
+            tg = t1 if name == "extra_adam" else tstate.prev_half_grad
+            check(port_opt.extrapolate(tcfg, tparams, tstate, tg),
+                  jax_opt.extrapolate(jcfg, jparams, jstate, jg))
+            jparams, jstate = jax_opt.commit(jcfg, jparams, jstate, j2)
+            tparams, tstate = port_opt.commit(tcfg, tparams, tstate, t2)
+        check(tparams, jparams)
+        check(tstate.mu, jstate.mu)
+        check(tstate.nu, jstate.nu)
+        assert tstate.count == int(jstate.count)
+        assert (tstate.prev_half_grad is None) == (jstate.prev_half_grad is None)
