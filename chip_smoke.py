@@ -5,7 +5,10 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.  It
 imports only ``repro_torch`` (from ``src/`` beside this file) and:
 
 1. prints the card (``nvidia-smi --query-gpu=name,power.limit``);
-2. builds the CUDA exchange kernels from ``src/repro_torch/csrc``;
+2. builds the CUDA exchange kernels from ``src/repro_torch/csrc`` and
+   counts the integer instructions of the device PRNG (Philox4x32-10)
+   in the SASS of its test entry (``cuobjdump -sass``): the integer term
+   of the device-PRNG variants' bound;
 3. holds every kernel against its plain PyTorch version on the card over
    bits {4, 8} x q_norm {inf, 2} x K {1, 2, 8}, with a row count that is
    not a multiple of any tile and with all-zero rows: payload indices and
@@ -14,38 +17,50 @@ imports only ``repro_torch`` (from ``src/`` beside this file) and:
    f32 outputs and norms within rtol 1e-6.  Kernel 5 (segment-fused
    quantize∘dequantize) over T {1, 2, 3} stacked tables with mixed symbol
    counts x q_norm {inf, 2} x stochastic / nearest rounding, with zero
-   rows and a NaN row: bit-equal for q = inf, rtol 1e-6 for q = 2;
-4. drives two paths, each with the launch counts reset just before it and
-   read just after:
+   rows and a NaN row: bit-equal for q = inf, rtol 1e-6 for q = 2.  The
+   device PRNG (TPU kernel B5): Philox's known-answer vectors through its
+   test entry, then kernels 1 (int8, int4), 2 and 5 (T = 1, 2) drawing
+   their own noise, bit-equal to the same kernels fed ``philox_uniform``'s
+   draw of the seed on the card, and held to the plain versions;
+4. drives the paths, each run with the launch counts reset just before
+   it and read just after:
    a. the LM train step through the training entry point
       (``repro_torch.launch.train.run``) at the full width of
       tinyllama-1.1b (22 layers, d_model 2048, 32 heads / 4 kv heads,
       d_ff 5632, vocab 32000, bf16 layer weights, random from a seed):
-      3 qgenx ``de`` steps with the int8 two_phase exchange, 2 ``optda``
-      steps with the int4 gather exchange, then 2 ``extra_adam`` steps
-      with the layerwise int4 / int8 two_phase exchange, batch 4 x seq 512
-      on the one card (K = 1).  Kernels 1-4 must have launched, every loss
+      3 qgenx ``de`` steps with the int8 two_phase exchange, the same 3
+      with ``ExchangeConfig(use_device_prng=True)`` (only the device-PRNG
+      kernels 1 and 2 may launch; step times and peak memory printed
+      beside the host-noise run's), 2 ``optda`` steps with the int4
+      gather exchange, then 2 ``extra_adam`` steps with the layerwise
+      int4 / int8 two_phase exchange, batch 4 x seq 512 on the one card
+      (K = 1).  Every kernel of the path must have launched, every loss
       be finite and ``wire_bytes`` equal the analytic buffer sizes.  A
       reduced-size run on the card is then held against the same run on
-      the CPU (same weights, exact exchange);
+      the CPU (same weights, exact exchange; int8 with host noise and
+      with the device PRNG from the same seeds);
    b. the WGAN-GP testbed (``repro_torch.launch.train_gan.run``, the
       paper's Section 5 at the reference's width: K = 3 workers, batch
       256 each, hidden 64) for 300 ExtraAdam steps in each of the fp32,
-      uq8, uq4 and layerwise arms.  Kernel 5 must launch twice per step in
-      every compressed arm and never in fp32; every energy distance must
-      be finite and uq8's below the reference's bound 2 * fp32 + 0.5.
-      Each compressed arm's first kernel-5 call on the path ([3 x 19,
-      512]: num_symbols (17,) for uq8, (7,) for uq4, (7, 17) for
-      layerwise) is kept, its output held bit-equal to the plain version
-      on the same inputs, and the kernel timed at that shape (the
-      ``gan-*`` rows of kernel 5);
+      uq8, uq4 and layerwise arms, then uq8 with the device PRNG
+      (``wgan.train``).  Kernel 5 (or its device-PRNG variant) must
+      launch twice per step in every compressed arm and never in fp32;
+      every energy distance must be finite and uq8's below the
+      reference's bound 2 * fp32 + 0.5 (one seed of the device-PRNG arm
+      is reported beside it, not held to the bound).  Each compressed
+      arm's first kernel-5 call on the path ([3 x 19, 512]: num_symbols
+      (17,) for uq8, (7,) for uq4, (7, 17) for layerwise) is kept, its
+      output held bit-equal to the plain version on the same inputs, and
+      the kernel timed at that shape (the ``gan-*`` rows of kernel 5);
 5. runs each kernel at its main-path shape (the flat exchange buffer of
    tinyllama-1.1b, 2,148,532 rows x 512): kernels 1, 2, 3 in int8 as
    two_phase chains them, kernels 1 and 4 in int4 as gather does, and
    kernel 5 on the same buffer with one table (qgenx int8) and with the
    layerwise policy's two (int4 above 65536 coordinates, int8 below): the
-   ``tinyllama-buffer-*`` rows, a size no path of this slice gives kernel
-   5 (it carries the GAN path's launches).
+   ``tinyllama-buffer-*`` rows, a size no path gives kernel 5 (it
+   carries the GAN path's launches).  The device-PRNG variants of
+   kernels 1, 2 and 5 run beside their host-noise kernels (the
+   ``/prng`` rows).
    Each output is held against the plain version's on the same inputs
    (payload bytes and kernel 5's estimates exactly equal, f32 within rtol
    1e-6), and each kernel is timed beside its bound and its plain
@@ -59,6 +74,7 @@ either is printed.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -69,6 +85,9 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+# H100 SXM 32-bit integer rate: 64 INT32 lanes per SM per clock x 132 SMs
+# x 1.98 GHz, the boost clock behind the data sheet's 67 TFLOP/s f32
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 KERNEL_SOURCE = "src/repro_torch/csrc/exchange_kernels.cu"
 REPLACES = {
     "quantize_blocks": "src/repro/kernels/quantize.py:73",
@@ -76,8 +95,16 @@ REPLACES = {
     "dequantize_blocks": "src/repro/kernels/dequantize.py:48",
     "dequant_reduce_blocks": "src/repro/kernels/dequant_reduce.py:73",
     "quantize_dequantize_segments": "src/repro/kernels/segment_quantize.py:67",
+    # B5, the device-PRNG variants: prng_uniform (kernels/common.py:60) at
+    # its call site in each kernel body
+    "quantize_blocks/prng": "src/repro/kernels/quantize.py:63",
+    "dequant_reduce_requantize_blocks/prng": "src/repro/kernels/dequant_reduce.py:124",
+    "quantize_dequantize_segments/prng": "src/repro/kernels/segment_quantize.py:50",
 }
+PRNG_KERNELS = ("quantize_blocks/prng", "dequant_reduce_requantize_blocks/prng",
+                "quantize_dequantize_segments/prng")
 GAN_STEPS = 300
+PRNG_SEED = 0x9E3779B97F4A7C15  # the device-PRNG seed of the parity and timing phases
 
 
 def exchanged_coords(cfg) -> int:
@@ -231,8 +258,170 @@ def kernel_parity(torch) -> dict:
             fail(f"{tag}: NaN does not reach the same norms and values as the plain version")
         cases += 2
     cases += segment_parity(torch, gen, errs)
+    cases += prng_parity(torch, gen, errs)
     log(f"phase 3: {cases} kernel-vs-plain cases agree; max abs err {errs}")
     return errs
+
+
+PHILOX_KAT = [  # Random123's kat_vectors, "philox4x32 10": counter, key -> output
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2, (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+]
+
+
+def prng_parity(torch, gen, errs) -> int:
+    """The device-PRNG variants (B5) on the card.  Philox's known answers
+    through the test entry that writes raw words (and its words on random
+    counters against the plain version's); then kernels 1 (int8, int4),
+    2 (K = 1, 2, 8) and 5 (T = 1, 2) drawing their own noise, each held
+    bit-equal to the same kernel fed ``philox_uniform``'s draw of the seed
+    materialized on the card (payload bytes, norms and estimates, q = inf
+    and q = 2: the same arithmetic on the same noise), and to the plain
+    version on the CPU (``_check_indices`` / ``_check_segment``)."""
+    from repro_torch.core.exchange_plan import stack_level_tables
+    from repro_torch.core.quantization import uniform_levels
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dequant_reduce import dequant_reduce_requantize_blocks
+    from repro_torch.kernels.prng import philox_words
+    from repro_torch.kernels.quantize import quantize_blocks
+    from repro_torch.kernels.segment_quantize import quantize_dequantize_segments
+
+    dev = torch.device("cuda")
+    ctr = torch.tensor([c for c, _, _ in PHILOX_KAT], dtype=torch.int64)
+    key = torch.tensor([k for _, k, _ in PHILOX_KAT], dtype=torch.int64)
+    got = philox_words(ctr.to(dev), key.to(dev)).cpu().tolist()
+    if got != [list(w) for _, _, w in PHILOX_KAT]:
+        fail(f"Philox4x32-10 on the card misses the known answers: {got}")
+    cpu_gen = torch.Generator()
+    cpu_gen.manual_seed(5)
+    ctr = torch.randint(0, 1 << 32, (4096, 4), generator=cpu_gen, dtype=torch.int64)
+    key = torch.randint(0, 1 << 32, (4096, 2), generator=cpu_gen, dtype=torch.int64)
+    if not torch.equal(philox_words(ctr.to(dev), key.to(dev)).cpu(), philox_words(ctr, key)):
+        fail("Philox4x32-10 on the card differs from the plain version on random counters")
+    cases = 2
+    nb, zero_rows, seed = 37, [0, 17], PRNG_SEED
+
+    def same(name, got, want):
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                fail(f"{name}: differs from the host-noise kernel fed the same Philox draw")
+
+    for bits in (8, 4):
+        s = 15 if bits == 8 else 5
+        lv = uniform_levels(s, dev)
+        for bucket in (512, 130) + ((1023,) if bits == 8 else ()):
+            r = ref.philox_uniform(seed, 0, nb, bucket, dev)
+            for q_is_inf in (True, False):
+                tag = f"bits={bits} bucket={bucket} q={'inf' if q_is_inf else 2}"
+                kw = dict(num_symbols=s + 2, q_is_inf=q_is_inf, bits=bits)
+                x = torch.randn((nb, bucket), generator=gen, device=dev) * 3
+                x[zero_rows] = 0.0
+                pk, nk = quantize_blocks(x, None, lv, seed=seed, **kw)
+                same(f"quantize/prng {tag}", (pk, nk), quantize_blocks(x, r, lv, **kw))
+                pp, npl = ref.quantize_blocks_plain(x.cpu(), None, lv.cpu(), seed=seed, **kw)
+                _check_indices(torch, f"quantize/prng {tag}", pk.cpu(), pp, bits, q_is_inf,
+                               nk.cpu(), npl)
+                _close(torch, f"quantize/prng norms {tag}", nk.cpu(), npl)
+                if q_is_inf:
+                    errs["quantize_blocks/prng"] = max(errs["quantize_blocks/prng"], _close(
+                        torch, f"quantize/prng deq {tag}",
+                        ref.dequantize_blocks_plain(pk.cpu(), nk.cpu(), lv.cpu(), bits=bits),
+                        ref.dequantize_blocks_plain(pp, npl, lv.cpu(), bits=bits)))
+                cases += 1
+                for K in (1, 2, 8):
+                    ktag = f"{tag} K={K}"
+                    P, N = _rand_payload(torch, gen, K, nb, bucket, s, bits, zero_rows, dev)
+                    qk, mk = dequant_reduce_requantize_blocks(P, N, lv, None, num_workers=K,
+                                                              seed=seed, **kw)
+                    same(f"requantize/prng {ktag}", (qk, mk), dequant_reduce_requantize_blocks(
+                        P, N, lv, r, num_workers=K, **kw))
+                    qp, mp = ref.dequant_reduce_requantize_blocks_plain(
+                        P.cpu(), N.cpu(), lv.cpu(), None, seed=seed, **kw)
+                    _check_indices(torch, f"requantize/prng {ktag}", qk.cpu(), qp, bits,
+                                   q_is_inf, mk.cpu(), mp)
+                    _close(torch, f"requantize/prng norms {ktag}", mk.cpu(), mp)
+                    if q_is_inf:
+                        errs["dequant_reduce_requantize_blocks/prng"] = max(
+                            errs["dequant_reduce_requantize_blocks/prng"], _close(
+                                torch, f"requantize/prng deq {ktag}",
+                                ref.dequantize_blocks_plain(qk.cpu(), mk.cpu(), lv.cpu(),
+                                                            bits=bits),
+                                ref.dequantize_blocks_plain(qp, mp, lv.cpu(), bits=bits)))
+                    cases += 1
+    all_tables = [uniform_levels(15, dev), uniform_levels(5, dev)]
+    for T in (1, 2):
+        tables, ns = stack_level_tables(all_tables[:T])
+        for bucket in (512, 130, 37):
+            r = ref.philox_uniform(seed, 0, nb, bucket, dev)
+            for q_is_inf in (True, False):
+                tag = f"segment/prng T={T} ns={ns} bucket={bucket} q={'inf' if q_is_inf else 2}"
+                kw = dict(num_symbols=ns, q_is_inf=q_is_inf)
+                x = torch.randn((nb, bucket), generator=gen, device=dev) * 3
+                x[zero_rows] = 0.0
+                seg = torch.randint(0, T, (nb,), generator=gen, device=dev, dtype=torch.int32)
+                got = quantize_dequantize_segments(x, None, tables, seg, seed=seed, **kw)
+                same(tag, (got,), (quantize_dequantize_segments(x, r, tables, seg, **kw),))
+                want = ref.quantize_dequantize_segments_plain(x.cpu(), None, tables.cpu(),
+                                                              seg.cpu(), seed=seed, **kw)
+                errs["quantize_dequantize_segments/prng"] = max(
+                    errs["quantize_dequantize_segments/prng"],
+                    _check_segment(torch, tag, got.cpu(), want, q_is_inf))
+                cases += 1
+    log(f"  device PRNG: known answers held, {cases} cases equal the host-noise kernels")
+    return cases
+
+
+# the instructions of a Philox round: 32 x 32 -> 64-bit multiplies and
+# three-input xors
+ROUND_OPCODES = {"IMAD", "LOP3"}
+
+
+def philox_int_ops(torch) -> float:
+    """32-bit integer operations per coordinate of the device draw: the
+    multiplies and xors of the ten rounds in the SASS of ``philox_kernel``
+    (the test entry: one Philox4x32-10 call, four draws), over four, plus
+    the shift of the 24-bit conversion.  The key schedule's adds are left
+    out: the kernels' key is a launch argument, the same for every
+    thread, so they need not be per-coordinate work."""
+    import collections
+    import re
+    import shutil
+
+    from repro_torch.kernels import cuda
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        fail("cuobjdump not found (PATH, $CUDA_HOME/bin): the device draw's integer "
+             "operations cannot be counted")
+    proc = subprocess.run([tool, "-sass", str(cuda.build())], capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode != 0:
+        fail(f"cuobjdump -sass failed: {proc.stderr[-2000:]}")
+    counts, func = {}, None
+    for line in proc.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            func = m.group(1)
+            counts[func] = collections.Counter()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and func is not None:
+            counts[func][m.group(1)] += 1
+    philox = [f for f in counts if "philox_kernel" in f]
+    if len(philox) != 1:
+        fail(f"no single philox_kernel in the SASS functions: {sorted(counts)}")
+    hist = counts[philox[0]]
+    n_int = sum(c for op, c in hist.items() if op.split(".")[0] in ROUND_OPCODES)
+    log(f"  philox SASS ({tool}): {sum(hist.values())} instructions, {n_int} multiplies "
+        f"and xors; {dict(hist.most_common())}")
+    for f in sorted(counts):
+        if "quantize_kernel" in f and "Li4ELb0E" in f:  # VEC = 4, int8
+            log(f"  SASS {f}: {sum(counts[f].values())} instructions")
+    return n_int / 4 + 1
 
 
 def _check_segment(torch, name, got, want, q_is_inf):
@@ -314,61 +503,78 @@ def tinyllama_leaf_shapes(torch) -> list:
 
 
 def train_path(torch, batch: int, seq: int, shapes: list) -> dict:
-    """The LM path at full width; returns each kernel's launch counts by
-    run: {"int8": the qgenx int8 two_phase run's, "int4": the qgenx int4
-    gather run's, "layerwise": the extra_adam layerwise run's}."""
-    from repro_torch.core.exchange import ExchangeConfig, make_exchange
+    """The LM path at full width, run by run, with the launch counts reset
+    just before each run and read just after: qgenx ``de`` int8 two_phase
+    with host noise, the same with the device PRNG
+    (``ExchangeConfig(use_device_prng=True)``, given to ``run`` as the
+    exchange: the CLI has no flag for it, as in the reference), qgenx
+    ``optda`` int4 gather and extra_adam layerwise.  Returns, per run, its
+    launch counts, step times and peak device memory."""
+    from repro_torch.core.exchange import make_exchange
     from repro_torch.core.exchange_plan import size_of
-    from repro_torch.core.quantization import QuantConfig
     from repro_torch.kernels import cuda
-    from repro_torch.launch.train import run
+    from repro_torch.launch.train import build_exchange_config, run
 
+    de_int8 = dict(optimizer="qgenx", method="de", compression="int8",
+                   compress_mode="two_phase", steps=3)
     runs = [
-        ("int8", 2, dict(optimizer="qgenx", method="de", compression="int8",
-                         compress_mode="two_phase", steps=3)),
+        ("int8", 2, de_int8, False),
+        ("int8-prng", 2, de_int8, True),
         ("int4", 1, dict(optimizer="qgenx", method="optda", compression="int4",
-                         compress_mode="gather", steps=2)),
+                         compress_mode="gather", steps=2), False),
         ("layerwise", 2, dict(optimizer="extra_adam", compressor="layerwise",
-                              compression="int4", compress_mode="two_phase", steps=2)),
+                              compression="int4", compress_mode="two_phase", steps=2), False),
     ]
+    host_only = ("quantize_blocks", "dequant_reduce_requantize_blocks")
     sizes = [size_of(s) for s in shapes]
     by_run = {}
-    cuda.reset_launch_counts()
-    for tag, calls, spec in runs:
-        before = cuda.launch_counts()
-        out = run(
-            _train_args(arch="tinyllama-1.1b", dtype="bfloat16", batch=batch, seq=seq,
-                        device="cuda", **spec),
-            log=lambda m: log(f"  {m}"))
-        after = cuda.launch_counts()
-        bits = 8 if spec["compression"] == "int8" else 4
-        quant = QuantConfig(num_levels=15 if bits == 8 else 5, bits=bits, bucket_size=512)
-        ex = make_exchange(ExchangeConfig(compressor=spec.get("compressor", "qgenx"),
-                                          quant=quant, mode=spec["compress_mode"]))
+    for tag, calls, spec, prng in runs:
+        args = _train_args(arch="tinyllama-1.1b", dtype="bfloat16", batch=batch, seq=seq,
+                           device="cuda", **spec)
+        ex_cfg = dataclasses.replace(build_exchange_config(args), use_device_prng=prng)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launch_counts()
+        out = run(args, log=lambda m: log(f"  {m}"), exchange=ex_cfg)
+        counts = cuda.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        ex = make_exchange(ex_cfg)
         want_wire = calls * ex.compressor.wire_bytes_tree(sizes, 1, ex.cfg)
         if not all(math.isfinite(v) for v in out["loss"]):
-            fail(f"non-finite loss in {spec}: {out['loss']}")
+            fail(f"non-finite loss in {tag} {spec}: {out['loss']}")
         if any(w != want_wire for w in out["wire_bytes"]):
-            fail(f"wire_bytes {out['wire_bytes']} != analytic {want_wire} in {spec}")
-        delta = {k: after[k] - before[k] for k in after}
-        by_run[tag] = delta
+            fail(f"wire_bytes {out['wire_bytes']} != analytic {want_wire} in {tag} {spec}")
+        stray = [k for k in (host_only if prng else PRNG_KERNELS) if counts[k]]
+        if stray:
+            fail(f"LM run {tag} launched {stray}: {counts}")
+        by_run[tag] = {"counts": counts, "step_s": out["step_s"], "peak_bytes": peak}
         log(f"  {spec['optimizer']} {tag} {spec['compress_mode']}: "
             f"loss={out['loss']} wire_bytes={out['wire_bytes'][0]:.0f} "
-            f"step_s={out['step_s']} launches={delta}")
-    counts = cuda.launch_counts()
-    lm_kernels = [k for k in counts if k != "quantize_dequantize_segments"]
-    missing = [k for k in lm_kernels if counts[k] == 0]
+            f"step_s={out['step_s']} peak_bytes={peak} launches={counts}")
+    lm_kernels = [k for k in cuda.KERNELS
+                  if k not in ("quantize_dequantize_segments", "philox")
+                  and k != "quantize_dequantize_segments/prng"]
+    missing = [k for k in lm_kernels if not any(r["counts"][k] for r in by_run.values())]
     if missing:
         fail(f"kernels never launched on the LM path: {missing}")
-    log(f"phase 4a: LM path launches {counts}")
+    host, prng = by_run["int8"], by_run["int8-prng"]
+    log(f"phase 4a: de int8 two_phase, host noise vs device PRNG: step_s {host['step_s']} vs "
+        f"{prng['step_s']}; peak device memory {host['peak_bytes']} vs {prng['peak_bytes']} "
+        f"bytes ({(host['peak_bytes'] - prng['peak_bytes']) / 1e9:.3f} GB less)")
     return by_run
 
 
 GAN_TABLES = {"uq8": (17,), "uq4": (7,), "layerwise": (7, 17)}  # kernel 5's num_symbols
+GAN_PRNG_ARM = "uq8-prng"
 
 
-def gan_path(torch) -> tuple:
-    """The WGAN-GP testbed at the reference's width, every ported arm.
+def gan_path(torch, int_ops: float) -> tuple:
+    """The WGAN-GP testbed at the reference's width: every ported arm
+    through the CLI's ``run``, then the uq8 arm with the device PRNG
+    (``GANConfig(exchange=ExchangeConfig(..., use_device_prng=True))``
+    through ``wgan.train``), the launch counts reset just before each arm
+    and read just after.
 
     While it runs, the kernel-5 wrapper that ``fused_compress`` calls is
     wrapped to keep a copy of its first call's inputs and output in each
@@ -378,6 +584,7 @@ def gan_path(torch) -> tuple:
     shape ([K x 19, 512]: 3 workers' buffers in one launch).  Returns
     ({arm: (result, kernel 5 launches)}, the GAN-shape kernel rows)."""
     from repro_torch.core import exchange_plan
+    from repro_torch.gan import wgan
     from repro_torch.kernels import cuda, ref
     from repro_torch.launch import train_gan
 
@@ -392,45 +599,57 @@ def gan_path(torch) -> tuple:
         return out
 
     out = {}
-    cuda.reset_launch_counts()
+    workers = train_gan.parser().parse_args([]).workers
     exchange_plan.quantize_dequantize_segments = recorder
     try:
-        for arm in train_gan.PORTED_ARMS:
-            before = cuda.launch_counts()["quantize_dequantize_segments"]
-            args = train_gan.parser().parse_args(["--steps", str(GAN_STEPS), "--arms", arm])
-            res = train_gan.run(args, log=lambda m: log(f"  {m}"))[arm]
-            n = cuda.launch_counts()["quantize_dequantize_segments"] - before
+        for arm in train_gan.PORTED_ARMS + (GAN_PRNG_ARM,):
+            cuda.reset_launch_counts()
+            if arm == GAN_PRNG_ARM:
+                cfg = wgan.GANConfig(num_workers=workers, exchange=dataclasses.replace(
+                    train_gan.arm_exchange("uq8"), use_device_prng=True))
+                res = wgan.train(cfg, steps=GAN_STEPS, device="cuda")
+            else:
+                args = train_gan.parser().parse_args(["--steps", str(GAN_STEPS), "--arms", arm])
+                res = train_gan.run(args, log=lambda m: log(f"  {m}"))[arm]
+            counts = cuda.launch_counts()
+            kernel = ("quantize_dequantize_segments/prng" if arm == GAN_PRNG_ARM
+                      else "quantize_dequantize_segments")
+            other = ("quantize_dequantize_segments" if arm == GAN_PRNG_ARM
+                     else "quantize_dequantize_segments/prng")
+            n = counts[kernel]
             want = 0 if arm == "fp32" else 2 * GAN_STEPS  # one launch per exchange
-            if n != want:
-                fail(f"GAN arm {arm}: kernel 5 launched {n} times, expected {want}")
+            if n != want or counts[other]:
+                fail(f"GAN arm {arm}: {kernel} launched {n} times (expected {want}), "
+                     f"{other} {counts[other]}")
             if not math.isfinite(res["energy_distance"]):
                 fail(f"GAN arm {arm}: energy distance {res['energy_distance']}")
             out[arm] = (res, n)
             log(f"  gan {arm}: energy_distance={res['energy_distance']!r} "
                 f"median_step_ms={res['median_step_ms']!r} "
                 f"bytes_per_step_per_worker={res['bytes_per_step_per_worker']:.0f} "
-                f"kernel5_launches={n}")
+                f"{kernel}_launches={n}")
     finally:
         exchange_plan.quantize_dequantize_segments = wrapper
     ed8, ed32 = out["uq8"][0]["energy_distance"], out["fp32"][0]["energy_distance"]
     if not ed8 < 2 * ed32 + 0.5:
         fail(f"GAN uq8 energy distance {ed8} breaks the bound 2 * fp32 ({ed32}) + 0.5")
-    counts = cuda.launch_counts()
-    if counts["quantize_dequantize_segments"] == 0:
-        fail("kernel 5 never launched on the GAN path")
-    log(f"phase 4b: GAN path launches {counts}")
+    log(f"phase 4b: energy distance uq8 {ed8!r} (host noise) vs "
+        f"{out[GAN_PRNG_ARM][0]['energy_distance']!r} (device PRNG, one seed: not held to "
+        "the bound)")
 
     # the path's own kernel-5 calls against the plain version, then timed
     rows = []
-    workers = train_gan.parser().parse_args([]).workers
-    for arm, ns in GAN_TABLES.items():
+    for arm, ns in list(GAN_TABLES.items()) + [(GAN_PRNG_ARM, GAN_TABLES["uq8"])]:
         if arm not in first:
             fail(f"GAN arm {arm}: no kernel-5 call was recorded")
         (x, r, tables, seg), kw, got = first[arm]
+        prng = arm == GAN_PRNG_ARM
         if (tuple(x.shape) != (workers * 19, 512) or kw["num_symbols"] != ns
-                or not kw["q_is_inf"] or not kw["stochastic"] or r is None):
+                or not kw["q_is_inf"] or not kw["stochastic"]
+                or (r is None) != prng or (kw.get("seed") is None) == prng):
             fail(f"GAN arm {arm}: kernel 5 called on {tuple(x.shape)} with {kw}, expected "
-                 f"[{workers * 19}, 512] with num_symbols {ns}, q = inf, stochastic")
+                 f"[{workers * 19}, 512] with num_symbols {ns}, q = inf, stochastic, "
+                 f"{'a seed' if prng else 'a noise buffer'}")
         tag = f"GAN {arm} [{x.shape[0]} x 512] T={len(ns)} ns={ns}"
         want = ref.quantize_dequantize_segments_plain(x, r, tables, seg, **kw)
         err = _check_segment(torch, f"{tag} (the path's output)", got, want, True)
@@ -439,20 +658,28 @@ def gan_path(torch) -> tuple:
             x, r, tables, seg, **kw), 50)
         _check_segment(torch, f"{tag} (timed)", again, want, True)
         n = x.numel()
-        rows.append(kernel_row(f"quantize_dequantize_segments/gan-{arm}", out[arm][1], ms,
-                               plain, err, 12 * n + 4 * x.shape[0] + 4 * tables.numel(),
-                               n * (10 + max(ns)),
-                               f"{tag}, the GAN path's shape"))
+        name = ("quantize_dequantize_segments/prng/gan-uq8" if prng
+                else f"quantize_dequantize_segments/gan-{arm}")
+        rows.append(kernel_row(name, out[arm][1], ms, plain, err,
+                               (8 if prng else 12) * n + 4 * x.shape[0] + 4 * tables.numel(),
+                               n * (10 + max(ns)), f"{tag}, the GAN path's shape",
+                               int_ops=n * int_ops if prng else 0))
     return out, rows
 
 
 class _NumpyNoise:
-    """The same uniform draws on any device, from one numpy stream."""
+    """The same uniform draws and seeds on any device, from one numpy
+    stream."""
 
     def __init__(self, seed):
         import numpy as np
 
         self.rng = np.random.RandomState(seed)
+
+    def seed(self):
+        import numpy as np
+
+        return int(self.rng.randint(0, 2**62, dtype=np.int64))
 
     def uniform(self, shape, device):
         import torch
@@ -463,8 +690,9 @@ class _NumpyNoise:
 
 def card_vs_cpu(torch) -> None:
     """Reduced tinyllama, same weights and noise: 2 de steps on the card
-    (CUDA kernels) vs on the CPU (plain versions), exact exchange and int8
-    two_phase."""
+    (CUDA kernels) vs on the CPU (plain versions), exact exchange, int8
+    two_phase, and int8 two_phase with the device PRNG (the same seeds on
+    both: the kernels' Philox against ``philox_uniform``)."""
     import copy
 
     import numpy as np
@@ -482,10 +710,10 @@ def card_vs_cpu(torch) -> None:
     base = build(cfg, seed=0, device="cpu")
     batch_np = next(make_pipeline(cfg.vocab_size, 4, 32, seed=0))
     opt_cfg = OptimizerConfig(name="qgenx", gamma_scale=0.02, method="de")
-    for ex_cfg, rtol in ((ExchangeConfig(compressor="none"), 1e-4),
-                         (ExchangeConfig(compressor="qgenx", mode="two_phase",
-                                         quant=QuantConfig(num_levels=15, bits=8,
-                                                           bucket_size=512)), 1e-3)):
+    int8 = ExchangeConfig(compressor="qgenx", mode="two_phase",
+                          quant=QuantConfig(num_levels=15, bits=8, bucket_size=512))
+    for ex_cfg, rtol in ((ExchangeConfig(compressor="none"), 1e-4), (int8, 1e-3),
+                         (dataclasses.replace(int8, use_device_prng=True), 1e-3)):
         results = []
         for dev in ("cpu", "cuda"):
             model = copy.deepcopy(base).to(dev)
@@ -501,13 +729,13 @@ def card_vs_cpu(torch) -> None:
                 losses.append(float(m["loss"]))
             results.append((np.array(losses), [p.detach().cpu() for p in model.param_leaves()]))
         (lc, pc), (lg, pg) = results
+        what = ex_cfg.compressor + (" device PRNG" if ex_cfg.use_device_prng else "")
         if not np.allclose(lg, lc, rtol=rtol, atol=0):
-            fail(f"card vs cpu loss ({ex_cfg.compressor}): {lg} vs {lc}")
+            fail(f"card vs cpu loss ({what}): {lg} vs {lc}")
         worst = max(float((a - b).norm() / b.norm()) for a, b in zip(pg, pc))
         if worst > rtol:
-            fail(f"card vs cpu params ({ex_cfg.compressor}): rel err {worst:.3e}")
-        log(f"  card vs cpu ({ex_cfg.compressor}): losses {lg} vs {lc}, "
-            f"worst param rel err {worst:.3e}")
+            fail(f"card vs cpu params ({what}): rel err {worst:.3e}")
+        log(f"  card vs cpu ({what}): losses {lg} vs {lc}, worst param rel err {worst:.3e}")
 
 
 # ---------------------------------------------------------------------------
@@ -530,19 +758,26 @@ def _time_ms(torch, fn, reps: int):
     return start.elapsed_time(end) / reps, out
 
 
-def kernel_row(name, launches, ms, plain_ms, err, nbytes, ops, what) -> dict:
-    """One entry of the ``kernels`` line: the bound is the larger of the
-    bytes over the HBM rate and the f32 operations over the f32 rate."""
+def kernel_key(name: str) -> str:
+    """The launch counter (and REPLACES key) of a row name such as
+    ``quantize_blocks/int8`` or ``quantize_blocks/prng/int8``."""
+    return name if name in REPLACES else name.rsplit("/", 1)[0]
+
+
+def kernel_row(name, launches, ms, plain_ms, err, nbytes, ops, what, int_ops=0) -> dict:
+    """One entry of the ``kernels`` line: the bound is the largest of the
+    bytes over the HBM rate, the f32 operations over the f32 rate and the
+    32-bit integer operations (the device PRNG's) over the integer rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = max(ops / F32_OPS_PER_S, int_ops / INT32_OPS_PER_S) * 1e3
     bound = max(t_bytes, t_ops)
-    kernel = name.split("/")[0]
     row = {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-           "replaces": REPLACES[kernel], "launches": launches, "max_abs_err": err,
+           "replaces": REPLACES[kernel_key(name)], "launches": launches, "max_abs_err": err,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
-    log(f"  {name} [{what}]: {ms:.4f} ms (bound {bound:.4f} ms by {row['bound_by']}, "
-        f"{nbytes / 1e9:.4f} GB; plain {plain_ms:.4f} ms); launches {launches}, "
+    log(f"  {name} [{what}]: {ms:.4f} ms (bound {bound:.4f} ms by {row['bound_by']}: "
+        f"{nbytes / 1e9:.4f} GB -> {t_bytes:.4f} ms, {ops:.4g} f32 and {int_ops:.4g} int32 "
+        f"ops -> {t_ops:.4f} ms; plain {plain_ms:.4f} ms); launches {launches}, "
         f"max abs err vs plain {err:.3e}")
     return row
 
@@ -566,17 +801,32 @@ def _deq_err(torch, name, got, want, levels, bits, chunk=1 << 18):
     return err
 
 
-def kernel_times(torch, launches: dict, errs: dict, shapes: list) -> list:
+def _plain_chunks(torch, fn, rows, chunk=1 << 18):
+    """Run a plain version in row chunks (its intermediates at the full
+    buffer would not fit beside the buffers): ``fn(row slice)`` per chunk,
+    outputs concatenated along rows."""
+    parts = [fn(slice(i, min(i + chunk, rows))) for i in range(0, rows, chunk)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p) for p in zip(*parts))
+    return torch.cat(parts)
+
+
+def kernel_times(torch, launches: dict, errs: dict, shapes: list, int_ops: float) -> list:
     """Each kernel at the shape the main path gives it: the tinyllama-1.1b
     flat exchange buffer (K = 1, bucket 512, q = inf); kernels 1-3 as the
     int8 two_phase exchange runs them (kernel 2 and 3 on kernel 1's and
     kernel 2's outputs), kernels 1 and 4 as the int4 gather exchange runs
     them, kernel 5 as ``compress_tree`` runs it on that buffer (qgenx int8:
-    one table; layerwise: the plan's two segments).  Each kernel's last
-    timed output is held against its plain version's on the same inputs
-    (payload bytes and kernel 5's estimates exactly equal, f32 within rtol
-    1e-6); ``max_abs_err`` is the larger of this and phase 3's.
-    ``launches`` is each kernel's count over the main path it runs on."""
+    one table; layerwise: the plan's two segments).  The device-PRNG
+    variants of kernels 1, 2 and 5 run on the same inputs right after the
+    host-noise kernel (kernel 2's on the device-PRNG kernel 1's payload),
+    their plain versions (``philox_uniform``'s draw, then the host-noise
+    plain version) in row chunks.  Each kernel's last timed output is held
+    against its plain version's on the same inputs (payload bytes and
+    kernel 5's estimates exactly equal, f32 within rtol 1e-6);
+    ``max_abs_err`` is the larger of this and phase 3's.  ``launches`` is
+    each kernel's count over the main path it runs on; ``int_ops`` the
+    device draw's integer operations per coordinate."""
     from repro_torch.configs import get_config
     from repro_torch.core.quantization import uniform_levels
     from repro_torch.kernels import ref
@@ -596,29 +846,46 @@ def kernel_times(torch, launches: dict, errs: dict, shapes: list) -> list:
     gen.manual_seed(99)
     out = []
 
-    def entry(name, bits, ms, plain_ms, err, nbytes, ops, what=None):
-        kernel = name.split("/")[0]
+    def entry(name, bits, ms, plain_ms, err, nbytes, ops, what=None, iops=0):
+        kernel = kernel_key(name)
         out.append(kernel_row(name, launches[kernel], ms, plain_ms, max(err, errs[kernel]),
-                              nbytes, ops, f"{rows} x {bucket}, {what or f'int{bits}'}"))
+                              nbytes, ops, f"{rows} x {bucket}, {what or f'int{bits}'}",
+                              int_ops=iops))
+
+    def draw(seed, sl):
+        return ref.philox_uniform(seed, sl.start, sl.stop - sl.start, bucket, dev)
 
     def quantize(bits, s, lv):
+        """Kernel 1 with host noise, then with the device PRNG, on one x."""
+        kw = dict(num_symbols=s + 2, q_is_inf=True, bits=bits)
         x = torch.randn((rows, bucket), generator=gen, device=dev)
         r = torch.rand((rows, bucket), generator=gen, device=dev)
-        ms, got = _time_ms(torch, lambda: quantize_blocks(
-            x, r, lv, num_symbols=s + 2, q_is_inf=True, bits=bits), 10)
-        plain, want = _time_ms(torch, lambda: ref.quantize_blocks_plain(
-            x, r, lv, num_symbols=s + 2, q_is_inf=True, bits=bits), 2)
-        del x, r
+        ms, got = _time_ms(torch, lambda: quantize_blocks(x, r, lv, **kw), 10)
+        plain, want = _time_ms(torch, lambda: ref.quantize_blocks_plain(x, r, lv, **kw), 2)
+        del r
         torch.cuda.empty_cache()
         err = _deq_err(torch, f"quantize int{bits} main-path shape", got, want, lv, bits)
+        del want
         entry(f"quantize_blocks/int{bits}", bits, ms, plain, err,
               4 * n + 4 * n + n * bits // 8 + 4 * rows, n * (10 + 2 * s))
-        return got
+        ms, got_p = _time_ms(torch, lambda: quantize_blocks(x, None, lv, seed=PRNG_SEED,
+                                                            **kw), 10)
+        plain, want = _time_ms(torch, lambda: _plain_chunks(
+            torch, lambda sl: ref.quantize_blocks_plain(x[sl], draw(PRNG_SEED, sl), lv, **kw),
+            rows), 1)
+        del x
+        torch.cuda.empty_cache()
+        err = _deq_err(torch, f"quantize/prng int{bits} main-path shape", got_p, want, lv,
+                       bits)
+        del want
+        entry(f"quantize_blocks/prng/int{bits}", bits, ms, plain, err,
+              4 * n + n * bits // 8 + 4 * rows, n * (10 + 2 * s), iops=n * int_ops)
+        return got, got_p
 
     # int8 two_phase (s = 15): kernel 1 -> kernel 2 -> kernel 3
     s, bits = 15, 8
     lv = uniform_levels(s, dev)
-    payload, norms = quantize(bits, s, lv)
+    (payload, norms), prng_out = quantize(bits, s, lv)
     P, N = payload.unsqueeze(0), norms.unsqueeze(0)
     r2 = torch.rand((rows, bucket), generator=gen, device=dev)  # the re-quantize draw
     ms, got = _time_ms(torch, lambda: dequant_reduce_requantize_blocks(
@@ -631,6 +898,22 @@ def kernel_times(torch, launches: dict, errs: dict, shapes: list) -> list:
     entry("dequant_reduce_requantize_blocks", bits, ms, plain, err,
           n + 4 * rows + 4 * n + n + 4 * rows, n * (14 + 2 * s))
     del want
+    # the device-PRNG kernel 2 on the device-PRNG kernel 1's payload, its
+    # own seed (an exchange's second draw)
+    P, N = prng_out[0].unsqueeze(0), prng_out[1].unsqueeze(0)
+    kw = dict(num_symbols=s + 2, q_is_inf=True, bits=bits)
+    ms, got_p = _time_ms(torch, lambda: dequant_reduce_requantize_blocks(
+        P, N, lv, None, num_workers=1, seed=PRNG_SEED + 1, **kw), 10)
+    plain_p, want = _time_ms(torch, lambda: _plain_chunks(
+        torch, lambda sl: ref.dequant_reduce_requantize_blocks_plain(
+            P[:, sl], N[:, sl], lv, draw(PRNG_SEED + 1, sl), **kw), rows), 1)
+    del P, N, prng_out
+    torch.cuda.empty_cache()
+    err = _deq_err(torch, "dequant_reduce_requantize/prng main-path shape", got_p, want, lv,
+                   bits)
+    entry("dequant_reduce_requantize_blocks/prng", bits, ms, plain_p, err,
+          n + 4 * rows + n + 4 * rows, n * (14 + 2 * s), iops=n * int_ops)
+    del want, got_p
     payload, norms = got
     ms, got = _time_ms(torch, lambda: dequantize_blocks(
         payload, norms, lv, num_symbols=s + 2, bits=bits), 10)
@@ -644,7 +927,7 @@ def kernel_times(torch, launches: dict, errs: dict, shapes: list) -> list:
     # int4 gather (s = 5): kernel 1 -> kernel 4
     s, bits = 5, 4
     lv = uniform_levels(s, dev)
-    payload, norms = quantize(bits, s, lv)
+    (payload, norms), _ = quantize(bits, s, lv)
     P, N = payload.unsqueeze(0), norms.unsqueeze(0)
     ms, got = _time_ms(torch, lambda: dequant_reduce_blocks(
         P, N, lv, num_symbols=s + 2, num_workers=1, bits=bits), 10)
@@ -654,17 +937,17 @@ def kernel_times(torch, launches: dict, errs: dict, shapes: list) -> list:
     entry("dequant_reduce_blocks", bits, ms, plain, err, n // 2 + 4 * rows + 4 * n, 4 * n)
     del P, N, payload, norms, got, want
     torch.cuda.empty_cache()
-    segment_times(torch, gen, rows, bucket, shapes, entry)
+    segment_times(torch, gen, rows, bucket, shapes, entry, int_ops)
     return out
 
 
-def segment_times(torch, gen, rows, bucket, shapes, entry, chunk=1 << 18) -> None:
+def segment_times(torch, gen, rows, bucket, shapes, entry, int_ops) -> None:
     """Kernel 5 on the tinyllama-1.1b compress buffer, with the qgenx int8
     table (T = 1) and with the layerwise plan's two segments (T = 2: leaves
-    above 65536 coordinates in int4 first, the rest in int8).  The plain
-    version runs in row chunks (its intermediates at full size would not
-    fit beside the buffers); its chunks are timed together and each is
-    held bit-equal to the kernel's rows."""
+    above 65536 coordinates in int4 first, the rest in int8), each with
+    host noise and with the device PRNG.  The plain version runs in row
+    chunks; its chunks are timed together and each is held bit-equal to
+    the kernel's rows."""
     from repro_torch.core.exchange import ExchangeConfig, make_exchange
     from repro_torch.core.exchange_plan import stack_level_tables
     from repro_torch.core.quantization import QuantConfig, uniform_levels
@@ -691,29 +974,31 @@ def segment_times(torch, gen, rows, bucket, shapes, entry, chunk=1 << 18) -> Non
     for tag, tables, seg in variants:
         stacked, ns = stack_level_tables(tables)
         kw = dict(num_symbols=ns, q_is_inf=True, stochastic=True)
-        ms, got = _time_ms(torch, lambda: quantize_dequantize_segments(
-            x, r, stacked, seg, **kw), 10)
+        for prng in (False, True):
+            name = "quantize_dequantize_segments" + ("/prng" if prng else "")
+            seed = PRNG_SEED if prng else None
+            ms, got = _time_ms(torch, lambda: quantize_dequantize_segments(
+                x, None if prng else r, stacked, seg, seed=seed, **kw), 10)
 
-        def plain_chunks(check):
-            for i in range(0, rows, chunk):
-                sl = slice(i, i + chunk)
-                want = ref.quantize_dequantize_segments_plain(x[sl], r[sl], stacked,
-                                                              seg[sl], **kw)
-                if check and not torch.equal(got[sl], want):
-                    fail(f"segment {tag} main-path shape: rows {i}.. differ from the "
-                         "plain version")
+            def plain_chunk(sl):
+                noise = (ref.philox_uniform(PRNG_SEED, sl.start, sl.stop - sl.start, bucket,
+                                            dev) if prng else r[sl])
+                return ref.quantize_dequantize_segments_plain(x[sl], noise, stacked, seg[sl],
+                                                              **kw)
 
-        plain, _ = _time_ms(torch, lambda: plain_chunks(False), 1)
-        plain_chunks(True)
-        del got
-        torch.cuda.empty_cache()
-        # x and the noise read once, the estimate written once; per
-        # coordinate: abs, divide, clamp, (s_max - 2) compares, two
-        # subtracts, a divide, the rounding compare, sign and product
-        entry(f"quantize_dequantize_segments/tinyllama-buffer-{tag}", 0, ms, plain, 0.0,
-              12 * n + 4 * rows + 4 * stacked.numel(), n * (10 + max(ns)),
-              what=f"T={len(tables)} ns={ns}; not a shape the GAN path runs, its launches "
-                   "are the GAN path's")
+            plain, want = _time_ms(torch, lambda: _plain_chunks(torch, plain_chunk, rows), 1)
+            if not torch.equal(got, want):
+                fail(f"{name} {tag} main-path shape: {int((got != want).sum())} estimates "
+                     "differ from the plain version")
+            del got, want
+            torch.cuda.empty_cache()
+            # x (and the host noise) read once, the estimate written once;
+            # per coordinate: abs, divide, clamp, (s_max - 2) compares, two
+            # subtracts, a divide, the rounding compare, sign and product
+            entry(f"{name}/tinyllama-buffer-{tag}", 0, ms, plain, 0.0,
+                  (8 if prng else 12) * n + 4 * rows + 4 * stacked.numel(), n * (10 + max(ns)),
+                  what=f"T={len(tables)} ns={ns}; not a shape the GAN path runs, its launches "
+                       "are the GAN path's", iops=n * int_ops if prng else 0)
 
 
 def main() -> None:
@@ -756,6 +1041,8 @@ def main() -> None:
     for line in cuda.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
+    int_ops = philox_int_ops(torch)
+    log(f"  device draw: {int_ops} integer operations per coordinate")
 
     # phase 3: kernel parity on the card
     t0 = time.perf_counter()
@@ -769,22 +1056,23 @@ def main() -> None:
     t0 = time.perf_counter()
     shapes = tinyllama_leaf_shapes(torch)
     by_run = train_path(torch, args.batch, args.seq, shapes)
-    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     card_vs_cpu(torch)
     log(f"phase 4a took {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
-    launches = {k: sum(d[k] for d in by_run.values()) for k in cuda.KERNELS}
+    launches = {k: sum(r["counts"][k] for r in by_run.values()) for k in cuda.KERNELS}
 
-    # phase 4b: the WGAN-GP testbed, every ported arm
+    # phase 4b: the WGAN-GP testbed, every ported arm, and uq8 with the device PRNG
     t0 = time.perf_counter()
-    gan, gan_rows = gan_path(torch)
-    launches["quantize_dequantize_segments"] = sum(n for _, n in gan.values())
+    gan, gan_rows = gan_path(torch, int_ops)
+    launches["quantize_dequantize_segments"] = sum(
+        n for arm, (_, n) in gan.items() if arm != GAN_PRNG_ARM)
+    launches["quantize_dequantize_segments/prng"] = gan[GAN_PRNG_ARM][1]
     log(f"phase 4b took {time.perf_counter() - t0:.1f} s")
 
     # phase 5: kernel times at the main-path shapes
     t0 = time.perf_counter()
-    rows = kernel_times(torch, launches, errs, shapes) + gan_rows
+    rows = kernel_times(torch, launches, errs, shapes, int_ops) + gan_rows
     log(f"phase 5 took {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": rows}), flush=True)

@@ -19,7 +19,12 @@ Collectives go through a small communicator object: :class:`SingleWorker`
 that rounds stochastically takes a noise source
 (:mod:`repro_torch.core.noise`) in the order the reference draws its
 noise: per exchange, the quantize draw, then (two_phase) the re-quantize
-draw.
+draw.  With ``ExchangeConfig(use_device_prng=True)`` each of those draws
+is one 64-bit seed asked of the source instead of a ``[rows, bucket]``
+f32 array, and the kernels draw the noise themselves (Philox, the port of
+TPU kernel B5): no noise buffer is made.  The two draws of one exchange
+take two seeds, as the reference's ``k1`` / ``k2``; each worker's source
+is its own, as the reference folds the worker index into its key.
 
 The quantize / dequantize steps always run the exchange kernels of
 :mod:`repro_torch.kernels` — the port's counterpart of the reference's
@@ -28,8 +33,8 @@ The quantize / dequantize steps always run the exchange kernels of
 Not ported, and rejected by :class:`ExchangeConfig` (an unported value
 raises ``ValueError``, an unported field ``TypeError``): the randk and
 error-feedback compressors, mode ``leafwise``, QAda level schedules,
-``sync_every`` / ``recenter_every``, bucketed overlap, the device-PRNG
-variants and the unplanned layout (``use_plan``).  The flat per-vector
+``sync_every`` / ``recenter_every``, bucketed overlap and the unplanned
+layout (``use_plan``).  The flat per-vector
 ``compress`` is not ported either: :class:`Exchange` has no such method.
 """
 
@@ -43,6 +48,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import exchange_plan as xplan
+from repro_torch.core.noise import draw_rounding
 from repro_torch.core.quantization import QuantConfig, pad_to_buckets, uniform_levels
 from repro_torch.core.tree import tree_flatten, tree_unflatten
 from repro_torch.kernels.dequant_reduce import (
@@ -122,12 +128,16 @@ class ExchangeConfig:
     """The exchange's static configuration (reference field names).
 
     Only the ported fields exist: a field of the reference that is not
-    ported yet (``sync_every``, ``use_device_prng``, ...) is an unknown
+    ported yet (``sync_every``, ``allreduce_fallback``, ...) is an unknown
     keyword and raises ``TypeError``; an unported value of a ported field
     raises ``ValueError``.  ``quant`` is the qgenx quantizer, or
     layerwise's low-bit one for leaves above ``layerwise_threshold``
     coordinates (default: 4 bit, s = 5, bucket 512); ``quant_small`` is
-    layerwise's quantizer for the other leaves.
+    layerwise's quantizer for the other leaves.  ``use_device_prng``: the
+    kernels draw their rounding noise themselves from a seed (no noise
+    buffer); the exact ``none`` compressor draws nothing either way.  The
+    reference requires ``use_pallas`` for it; the port always runs its
+    kernels, so nothing is left to check.
     """
 
     compressor: str = "qgenx"
@@ -135,6 +145,7 @@ class ExchangeConfig:
     quant_small: QuantConfig = QuantConfig(num_levels=15, bits=8, bucket_size=512)
     mode: str = "two_phase"
     layerwise_threshold: int = 65536
+    use_device_prng: bool = False
 
     def __post_init__(self):
         if self.compressor not in COMPRESSORS:
@@ -199,12 +210,14 @@ def exchange_buffer_bytes(n: int, axis_size: int, cfg: QuantConfig,
 
 
 def qgenx_pmean(x: torch.Tensor, comm, levels: torch.Tensor, noise,
-                cfg: QuantConfig, mode: str = "two_phase") -> torch.Tensor:
+                cfg: QuantConfig, mode: str = "two_phase", *,
+                use_device_prng: bool = False) -> torch.Tensor:
     """Unbiased quantized mean of each worker's flat f32 vector ``x``.
 
     ``gather``: quantize -> all_gather -> dequant_reduce (kernels 1, 4).
     ``two_phase``: quantize -> all_to_all -> dequant_reduce_requantize ->
-    all_gather -> dequantize (kernels 1, 2, 3).
+    all_gather -> dequantize (kernels 1, 2, 3).  With ``use_device_prng``
+    kernels 1 and 2 draw their noise from one seed each.
     """
     K = comm.size
     n = x.shape[0]
@@ -213,9 +226,9 @@ def qgenx_pmean(x: torch.Tensor, comm, levels: torch.Tensor, noise,
     x = x.float()
     if mode == "gather":
         x2d, _ = pad_to_buckets(x, bucket)
-        r = noise.uniform(x2d.shape, x2d.device)
+        r, seed = draw_rounding(noise, x2d.shape, x2d.device, use_device_prng)
         payload, norms = quantize_blocks(x2d, r, levels, num_symbols=cfg.num_symbols,
-                                         q_is_inf=q_is_inf, bits=cfg.bits)
+                                         q_is_inf=q_is_inf, bits=cfg.bits, seed=seed)
         del r
         mean2d = dequant_reduce_blocks(
             comm.all_gather(payload), comm.all_gather(norms), levels,
@@ -226,18 +239,18 @@ def qgenx_pmean(x: torch.Tensor, comm, levels: torch.Tensor, noise,
         xq, _ = pad_to_buckets(x, K * bucket)
         nbpc = xq.shape[0]
         x2d = xq.reshape(K * nbpc, bucket)
-        r = noise.uniform(x2d.shape, x2d.device)
+        r, seed = draw_rounding(noise, x2d.shape, x2d.device, use_device_prng)
         payload, norms = quantize_blocks(x2d, r, levels, num_symbols=cfg.num_symbols,
-                                         q_is_inf=q_is_inf, bits=cfg.bits)
+                                         q_is_inf=q_is_inf, bits=cfg.bits, seed=seed)
         del r
         # row k of the [K, nbpc, P] payload is the chunk destined to worker k
         p_t = comm.all_to_all(payload.reshape(K, nbpc, -1))
         n_t = comm.all_to_all(norms.reshape(K, nbpc))
         del payload, norms
-        r2 = noise.uniform((nbpc, bucket), x2d.device)
+        r2, seed2 = draw_rounding(noise, (nbpc, bucket), x2d.device, use_device_prng)
         ridx, rnorms = dequant_reduce_requantize_blocks(
             p_t, n_t, levels, r2, num_symbols=cfg.num_symbols, num_workers=K,
-            q_is_inf=q_is_inf, bits=cfg.bits)
+            q_is_inf=q_is_inf, bits=cfg.bits, seed=seed2)
         del r2, p_t, n_t
         g_idx = comm.all_gather(ridx).reshape(K * nbpc, -1)
         g_norms = comm.all_gather(rnorms).reshape(K * nbpc)
@@ -307,7 +320,8 @@ class QgenxCompressor(NoneCompressor):
     def pmean_leaves(self, leaves, exchange, state, noise):
         plan = exchange.plan_for(leaves)
         mean = qgenx_pmean(plan.pack(leaves), exchange.comm, state.levels, noise,
-                           exchange.cfg.quant, exchange.cfg.mode)
+                           exchange.cfg.quant, exchange.cfg.mode,
+                           use_device_prng=exchange.cfg.use_device_prng)
         return plan.unpack(mean, leaves)
 
     def _segment_table(self, seg, levels, device):
@@ -321,7 +335,7 @@ class QgenxCompressor(NoneCompressor):
         dev = str(leaves[0].device)
         tables = tuple(self._segment_table(seg, levels, dev) for seg in plan.segments)
         hat = xplan.fused_compress(plan, plan.pack(leaves, batch).reshape(-1, plan.total),
-                                   tables, noise)
+                                   tables, noise, use_device_prng=cfg.use_device_prng)
         return plan.unpack(hat.reshape(*batch, plan.total), leaves)
 
     def wire_bytes(self, n, axis_size, cfg):
@@ -364,7 +378,8 @@ class LayerwiseCompressor(QgenxCompressor):
         flat = plan.pack(leaves)
         outs = [qgenx_pmean(flat[seg.start: seg.stop], exchange.comm,
                             state.levels_lo if seg.table == 1 else state.levels, noise,
-                            seg.quant, exchange.cfg.mode)
+                            seg.quant, exchange.cfg.mode,
+                            use_device_prng=exchange.cfg.use_device_prng)
                 for seg in plan.segments]
         del flat
         return plan.unpack(outs[0] if len(outs) == 1 else torch.cat(outs), leaves)
@@ -453,7 +468,8 @@ class Exchange:
         ``levels=None`` takes the uniform tables.  With ``workers=True``
         every leaf carries a leading worker dim and all workers' buffers go
         through one launch per row geometry, each worker with its own noise
-        draw (asked in worker order)."""
+        draw (asked in worker order; with ``use_device_prng`` one seed per
+        launch, the workers' rows being distinct Philox counters)."""
         leaves, spec = tree_flatten(tree)
         out = self.compressor.compress_tree(leaves, self.cfg, levels, noise, int(workers))
         return tree_unflatten(spec, out)

@@ -8,6 +8,14 @@ writes the buffer once in its final aligned layout, so the exchange needs
 no further padding; ``unpack`` slices the leaves back out and casts to
 their dtypes.  :func:`fused_compress` is the segment-fused quantize∘
 dequantize of ``compress_tree``: one launch of kernel 5 per row geometry.
+
+Its noise, with the device PRNG (``use_device_prng``): W workers' buffers
+stacked as ``[W * rows, bucket]`` share ONE seed per launch, where the
+host draw asks one ``[rows, bucket]`` array per worker.  Worker w's row j
+is launch row ``w * rows + j``, a Philox counter no other worker's row
+has, so the workers' draws stay independent (the reference gives each
+worker its own key through ``vmap``); the draw equals the host path fed
+``philox_uniform(seed, w * rows, rows, bucket)`` for worker w.
 """
 
 from __future__ import annotations
@@ -189,7 +197,7 @@ def _row_tables(plan: ExchangePlan, seg_ids: tuple, bucket: int, workers: int,
 
 
 def fused_compress(plan: ExchangePlan, flat: torch.Tensor, tables: tuple,
-                   noise) -> torch.Tensor:
+                   noise, *, use_device_prng: bool = False) -> torch.Tensor:
     """One fused quantize∘dequantize pass over the planned buffer.
 
     ``flat`` is ``[total]``, or ``[W, total]`` for W workers' buffers at
@@ -200,7 +208,9 @@ def fused_compress(plan: ExchangePlan, flat: torch.Tensor, tables: tuple,
     tables; classes run in sorted geometry order, and each asks ``noise``
     for one ``[rows, bucket]`` draw per worker, in worker order (the
     reference keys class ``gi`` with ``fold_in(key, gi)`` when there is
-    more than one class).  Returns the f32 estimate, shaped like ``flat``.
+    more than one class), or with ``use_device_prng`` for one seed (the
+    reference's ``derive_prng_seed`` branch).  Returns the f32 estimate,
+    shaped like ``flat``.
     """
     if len(tables) != len(plan.segments):
         raise ValueError(f"{len(tables)} tables for {len(plan.segments)} segments")
@@ -220,13 +230,16 @@ def fused_compress(plan: ExchangePlan, flat: torch.Tensor, tables: tuple,
         rows = x.shape[1] // bucket
         x2d = x.reshape(W * rows, bucket)
         stacked, num_symbols = stack_level_tables([tables[si] for si in seg_ids])
-        r = None
-        if stochastic:
+        r = seed = None
+        if stochastic and use_device_prng:
+            seed = noise.seed()
+        elif stochastic:
             draws = [noise.uniform((rows, bucket), x2d.device) for _ in range(W)]
             r = draws[0] if W == 1 else torch.cat(draws)
         hat2d = quantize_dequantize_segments(
             x2d, r, stacked, _row_tables(plan, tuple(seg_ids), bucket, W, str(x2d.device)),
-            num_symbols=num_symbols, q_is_inf=math.isinf(q_norm), stochastic=stochastic)
+            num_symbols=num_symbols, q_is_inf=math.isinf(q_norm), stochastic=stochastic,
+            seed=seed)
         hat = hat2d.reshape(W, rows * bucket)
         col = 0
         for si in seg_ids:

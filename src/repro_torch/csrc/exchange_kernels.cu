@@ -10,6 +10,23 @@
 //   qx_dequant_reduce            <- repro/kernels/dequant_reduce.py::dequant_reduce_blocks
 //   qx_segment_qdq               <- repro/kernels/segment_quantize.py::
 //                                     quantize_dequantize_segments
+//   qx_philox                    (test entry: raw Philox4x32-10 words)
+//
+// Kernels 1, 2 and 5 take their stochastic-rounding noise from a
+// compile-time source: the host's [rows, bucket] f32 buffer, or — the
+// device-PRNG variants, replacing repro/kernels/common.py::prng_uniform
+// (TPU kernel B5) at its call sites in quantize.py, dequant_reduce.py and
+// segment_quantize.py — Philox4x32-10 computed in registers from a 64-bit
+// seed passed by value, with no noise buffer read and no host-to-card copy.
+// Coordinate (row, col) of a launch draws output word col % 4 of Philox at
+// counter (row, col / 4, 0, 0) under key (seed low word, seed high word),
+// mapped to the reference's 24-bit grid ((w >> 8) & 0xFFFFFF) * 2^-24: a
+// function of (seed, row, col) only, equal to the plain version
+// repro_torch/kernels/ref.py::philox_uniform whatever the block shape.
+// Dropping the buffer takes 4 B per coordinate off each kernel's traffic
+// and adds ~25 integer operations per coordinate (10 Philox rounds per
+// four draws), so the device-PRNG variants of kernels 1 and 2 may be bound
+// by integer issue rather than by bytes.
 //
 // Design (same for all five): one thread block per bucket row, the level
 // table (s + 2 <= 128 floats; kernel 5: the stacked [T, S_max] tables)
@@ -146,6 +163,82 @@ __device__ __forceinline__ void store_vec(float* p, const float* v) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Rounding noise sources (compile-time)
+// ---------------------------------------------------------------------------
+
+// Philox4x32-10 (Salmon et al., SC'11, with the Random123 constants):
+// one call maps a 128-bit counter and a 64-bit key to four 32-bit words.
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    if (i > 0) {
+      k.x += 0x9E3779B9u;
+      k.y += 0xBB67AE85u;
+    }
+    const uint32_t lo0 = 0xD2511F53u * c.x, hi0 = __umulhi(0xD2511F53u, c.x);
+    const uint32_t lo1 = 0xCD9E8D57u * c.z, hi1 = __umulhi(0xCD9E8D57u, c.z);
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+  }
+  return c;
+}
+
+// One word -> the 24-bit grid in [0, 1) (exact: a 24-bit integer times 2^-24).
+__device__ __forceinline__ float u24(uint32_t w) {
+  return __fmul_rn(__uint2float_rn(w >> 8), 5.9604644775390625e-08f);
+}
+
+__device__ __forceinline__ uint2 seed_key(unsigned long long seed) {
+  return make_uint2(static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32));
+}
+
+// The host draw: one row of the [rows, bucket] f32 noise buffer.
+struct BufferNoise {
+  const float* row;
+  template <int VEC>
+  __device__ __forceinline__ void get(int col, float* r) const {
+    load_vec<VEC>(row + col, r);
+  }
+};
+
+// The device draw (B5): the VEC draws of columns col .. col + VEC - 1.
+struct PhiloxNoise {
+  uint2 key;
+  uint32_t row;
+  template <int VEC>
+  __device__ __forceinline__ void get(int col, float* r) const {
+    if constexpr (VEC == 4) {  // col % 4 == 0: the four words of one counter
+      const uint4 w = philox4x32_10(make_uint4(row, static_cast<uint32_t>(col) >> 2, 0u, 0u),
+                                    key);
+      r[0] = u24(w.x); r[1] = u24(w.y); r[2] = u24(w.z); r[3] = u24(w.w);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const uint32_t c = static_cast<uint32_t>(col + e);
+        const uint4 w = philox4x32_10(make_uint4(row, c >> 2, 0u, 0u), key);
+        const uint32_t lane = c & 3u;
+        r[e] = u24(lane == 0 ? w.x : lane == 1 ? w.y : lane == 2 ? w.z : w.w);
+      }
+    }
+  }
+};
+
+// Kernel 5's nearest rounding: no noise at all.
+struct NoNoise {};
+
+// The source of one launch row: the buffer's row, or Philox at this row.
+template <class Noise>
+__device__ __forceinline__ Noise row_noise(const float* noise, unsigned long long seed,
+                                           long long row, int bucket) {
+  if constexpr (std::is_same<Noise, BufferNoise>::value) {
+    return BufferNoise{noise + row * bucket};
+  } else if constexpr (std::is_same<Noise, PhiloxNoise>::value) {
+    return PhiloxNoise{seed_key(seed), static_cast<uint32_t>(row)};
+  } else {
+    return NoNoise{};
+  }
+}
+
 // Write VEC signed indices as int8 (VEC bytes) or packed int4 (VEC/2 bytes).
 template <int VEC, bool PACK4>
 __device__ __forceinline__ void store_indices(int8_t* row_out, int col, const int* q) {
@@ -183,9 +276,9 @@ __device__ __forceinline__ void load_indices(const int8_t* row_in, int col, int*
 }
 
 // Quantize one row held at `src` (global or shared memory) against the
-// noise row; writes the payload row and the row norm.
-template <int VEC, bool PACK4>
-__device__ __forceinline__ void quantize_row(const float* src, const float* noise_row,
+// row's noise source; writes the payload row and the row norm.
+template <int VEC, bool PACK4, class Noise>
+__device__ __forceinline__ void quantize_row(const float* src, const Noise& noise,
                                              int bucket, bool q_is_inf,
                                              const float* s_lv, int num_symbols,
                                              float* s_red, int8_t* out_row,
@@ -207,7 +300,7 @@ __device__ __forceinline__ void quantize_row(const float* src, const float* nois
     float v[VEC], r[VEC];
     int q[VEC];
     load_vec<VEC>(src + g * VEC, v);
-    load_vec<VEC>(noise_row + g * VEC, r);
+    noise.template get<VEC>(g * VEC, r);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) q[e] = quant_one(v[e], r[e], safe, s_lv, num_symbols);
     store_indices<VEC, PACK4>(out_row, g * VEC, q);
@@ -219,9 +312,9 @@ __device__ __forceinline__ void quantize_row(const float* src, const float* nois
 // Kernels
 // ---------------------------------------------------------------------------
 
-template <int VEC, bool PACK4>
+template <int VEC, bool PACK4, class Noise>
 __global__ void quantize_kernel(const float* __restrict__ x,
-                                const float* __restrict__ noise,
+                                const float* __restrict__ noise, unsigned long long seed,
                                 const float* __restrict__ levels, int num_symbols,
                                 int bucket, bool q_is_inf,
                                 int8_t* __restrict__ out, float* __restrict__ norms) {
@@ -231,8 +324,9 @@ __global__ void quantize_kernel(const float* __restrict__ x,
   __syncthreads();
   const long long row = blockIdx.x;
   const long long pcols = PACK4 ? bucket / 2 : bucket;
-  quantize_row<VEC, PACK4>(x + row * bucket, noise + row * bucket, bucket, q_is_inf,
-                           s_lv, num_symbols, s_red, out + row * pcols, norms + row);
+  quantize_row<VEC, PACK4>(x + row * bucket, row_noise<Noise>(noise, seed, row, bucket),
+                           bucket, q_is_inf, s_lv, num_symbols, s_red, out + row * pcols,
+                           norms + row);
 }
 
 template <int VEC, bool PACK4>
@@ -298,10 +392,11 @@ __global__ void dequant_reduce_kernel(const int8_t* __restrict__ idx,
 }
 
 // The reduced row lives only in shared memory (dynamic, bucket floats).
-template <int VEC, bool PACK4>
+template <int VEC, bool PACK4, class Noise>
 __global__ void dequant_reduce_requantize_kernel(
     const int8_t* __restrict__ idx, const float* __restrict__ norms,
-    const float* __restrict__ noise, const float* __restrict__ levels,
+    const float* __restrict__ noise, unsigned long long seed,
+    const float* __restrict__ levels,
     int num_symbols, int K, long long nb, int bucket, bool q_is_inf, float inv_k,
     int8_t* __restrict__ out, float* __restrict__ onorms) {
   extern __shared__ float4 s_dyn[];
@@ -318,8 +413,9 @@ __global__ void dequant_reduce_requantize_kernel(
   }
   __syncthreads();
   const long long pcols = PACK4 ? bucket / 2 : bucket;
-  quantize_row<VEC, PACK4>(s_row, noise + row * bucket, bucket, q_is_inf, s_lv,
-                           num_symbols, s_red, out + row * pcols, onorms + row);
+  quantize_row<VEC, PACK4>(s_row, row_noise<Noise>(noise, seed, row, bucket), bucket,
+                           q_is_inf, s_lv, num_symbols, s_red, out + row * pcols,
+                           onorms + row);
 }
 
 
@@ -330,18 +426,20 @@ __global__ void dequant_reduce_requantize_kernel(
 // compare over the union of levels, which never counts a row against
 // another table's entries or the 1.0 padding.  The clamp keeps a NaN
 // (as jnp.clip and torch.clamp do) so a non-finite row matches the plain
-// version; a table id outside [0, T) writes NaN over its row.
+// version; a table id outside [0, T) writes NaN over its row.  Noise is
+// NoNoise for nearest rounding (xi >= 0.5).
 struct SymbolCounts {
   int v[kMaxTables];
 };
 
-template <int VEC, bool STOCHASTIC>
+template <int VEC, class Noise>
 __global__ void segment_qdq_kernel(const float* __restrict__ x,
-                                   const float* __restrict__ noise,
+                                   const float* __restrict__ noise, unsigned long long seed,
                                    const float* __restrict__ tables,
                                    const int* __restrict__ seg, int T, int s_max,
                                    SymbolCounts ns, int bucket, bool q_is_inf,
                                    float* __restrict__ out) {
+  constexpr bool STOCHASTIC = !std::is_same<Noise, NoNoise>::value;
   extern __shared__ float4 s_dyn[];
   float* s_tab = reinterpret_cast<float*>(s_dyn);
   __shared__ float s_red[32];
@@ -375,10 +473,11 @@ __global__ void segment_qdq_kernel(const float* __restrict__ x,
   }
   const float norm = finish_norm(block_reduce(part, q_is_inf, s_red), q_is_inf);
   const float safe = norm > 0.0f ? norm : 1.0f;
+  const Noise src = row_noise<Noise>(noise, seed, row, bucket);
   for (int g = threadIdx.x; g < ngroups; g += blockDim.x) {
     float v[VEC], r[VEC];
     load_vec<VEC>(x_row + g * VEC, v);
-    if constexpr (STOCHASTIC) load_vec<VEC>(noise + row * bucket + g * VEC, r);
+    if constexpr (STOCHASTIC) src.template get<VEC>(g * VEC, r);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) {
       float u = __fdiv_rn(fabsf(v[e]), safe);
@@ -393,6 +492,14 @@ __global__ void segment_qdq_kernel(const float* __restrict__ x,
     }
     store_vec<VEC>(out_row + g * VEC, v);
   }
+}
+
+// Test entry: raw Philox4x32-10 words of n (counter, key) pairs, so the
+// known-answer vectors can be checked on the card.
+__global__ void philox_kernel(const uint4* __restrict__ ctr, const uint2* __restrict__ key,
+                              long long n, uint4* __restrict__ out) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i < n) out[i] = philox4x32_10(ctr[i], key[i]);
 }
 
 int threads_for(int bucket, int vec) {
@@ -416,6 +523,23 @@ bool bad_args(int num_symbols, long long nb, int bucket, int vec) {
          bucket <= 0 || vec == 0;
 }
 
+template <class T>
+struct Tag {
+  using type = T;
+};
+
+// Calls f(Tag<PhiloxNoise>) or f(Tag<BufferNoise>).
+template <class F>
+void with_noise(bool device_prng, F&& f) {
+  if (device_prng) f(Tag<PhiloxNoise>{}); else f(Tag<BufferNoise>{});
+}
+
+// A launch's noise arguments: the device PRNG takes no buffer, the host
+// draw needs one.
+bool bad_noise(const float* noise, int device_prng) {
+  return device_prng ? noise != nullptr : noise == nullptr;
+}
+
 // Calls f(integral_constant<VEC>, bool_constant<PACK4>) for the runtime
 // (vec, pack4) pair; int4 packing is only instantiated for even VEC.
 template <class F>
@@ -436,19 +560,24 @@ void dispatch(int vec, bool pack4, F&& f) {
 
 extern "C" {
 
-int qx_quantize(const float* x, const float* noise, const float* levels,
-                int num_symbols, long long nb, int bucket, int q_is_inf, int bits,
-                int8_t* out, float* norms, int device, void* stream) {
+int qx_quantize(const float* x, const float* noise, unsigned long long seed,
+                int device_prng, const float* levels, int num_symbols, long long nb,
+                int bucket, int q_is_inf, int bits, int8_t* out, float* norms, int device,
+                void* stream) {
   const bool pack4 = bits == 4;
   const int vec = pick_vec(bucket, pack4);
-  if (bad_args(num_symbols, nb, bucket, vec)) return cudaErrorInvalidValue;
+  if (bad_args(num_symbols, nb, bucket, vec) || bad_noise(noise, device_prng))
+    return cudaErrorInvalidValue;
   if (nb == 0) return cudaSuccess;
   if (cudaError_t e = cudaSetDevice(device)) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int threads = threads_for(bucket, vec);
   dispatch(vec, pack4, [&](auto v, auto p) {
-    quantize_kernel<decltype(v)::value, decltype(p)::value><<<(unsigned)nb, threads, 0, s>>>(
-        x, noise, levels, num_symbols, bucket, q_is_inf != 0, out, norms);
+    with_noise(device_prng != 0, [&](auto n) {
+      quantize_kernel<decltype(v)::value, decltype(p)::value, typename decltype(n)::type>
+          <<<(unsigned)nb, threads, 0, s>>>(x, noise, seed, levels, num_symbols, bucket,
+                                            q_is_inf != 0, out, norms);
+    });
   });
   return cudaGetLastError();
 }
@@ -489,7 +618,8 @@ int qx_dequant_reduce(const int8_t* idx, const float* norms, const float* levels
 }
 
 int qx_dequant_reduce_requantize(const int8_t* idx, const float* norms,
-                                 const float* noise, const float* levels,
+                                 const float* noise, unsigned long long seed,
+                                 int device_prng, const float* levels,
                                  int num_symbols, int K, long long nb, int bucket,
                                  int q_is_inf, int bits, float inv_k, int8_t* out,
                                  float* onorms, int device, void* stream) {
@@ -497,29 +627,35 @@ int qx_dequant_reduce_requantize(const int8_t* idx, const float* norms,
   const int vec = pick_vec(bucket, pack4);
   // the reduced row is staged in dynamic shared memory (48 KB default cap)
   const size_t smem = sizeof(float) * (size_t)bucket;
-  if (bad_args(num_symbols, nb, bucket, vec) || K < 1 || smem > 48 * 1024)
+  if (bad_args(num_symbols, nb, bucket, vec) || K < 1 || smem > 48 * 1024 ||
+      bad_noise(noise, device_prng))
     return cudaErrorInvalidValue;
   if (nb == 0) return cudaSuccess;
   if (cudaError_t e = cudaSetDevice(device)) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int threads = threads_for(bucket, vec);
   dispatch(vec, pack4, [&](auto v, auto p) {
-    dequant_reduce_requantize_kernel<decltype(v)::value, decltype(p)::value>
-        <<<(unsigned)nb, threads, smem, s>>>(idx, norms, noise, levels, num_symbols, K, nb,
-                                             bucket, q_is_inf != 0, inv_k, out, onorms);
+    with_noise(device_prng != 0, [&](auto n) {
+      dequant_reduce_requantize_kernel<decltype(v)::value, decltype(p)::value,
+                                       typename decltype(n)::type>
+          <<<(unsigned)nb, threads, smem, s>>>(idx, norms, noise, seed, levels, num_symbols,
+                                               K, nb, bucket, q_is_inf != 0, inv_k, out,
+                                               onorms);
+    });
   });
   return cudaGetLastError();
 }
 
-int qx_segment_qdq(const float* x, const float* noise, const float* tables,
-                   const int* seg, int T, int s_max, const int* num_symbols,
-                   long long nb, int bucket, int q_is_inf, int stochastic, float* out,
-                   int device, void* stream) {
+int qx_segment_qdq(const float* x, const float* noise, unsigned long long seed,
+                   int device_prng, const float* tables, const int* seg, int T, int s_max,
+                   const int* num_symbols, long long nb, int bucket, int q_is_inf,
+                   int stochastic, float* out, int device, void* stream) {
   const int vec = pick_vec(bucket, false);
   // the stacked tables are staged in dynamic shared memory (48 KB default cap)
   const size_t smem = sizeof(float) * (size_t)T * (size_t)s_max;
   if (T < 1 || T > kMaxTables || s_max < 2 || s_max > kMaxSymbols || nb < 0 ||
-      nb > 0x7fffffffLL || bucket <= 0 || smem > 48 * 1024 || (stochastic && !noise))
+      nb > 0x7fffffffLL || bucket <= 0 || smem > 48 * 1024 ||
+      (stochastic ? bad_noise(noise, device_prng) : device_prng != 0))
     return cudaErrorInvalidValue;
   SymbolCounts ns = {};
   for (int t = 0; t < T; ++t) {
@@ -530,23 +666,32 @@ int qx_segment_qdq(const float* x, const float* noise, const float* tables,
   if (cudaError_t e = cudaSetDevice(device)) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int threads = threads_for(bucket, vec);
-  auto launch = [&](auto v, auto st) {
-    segment_qdq_kernel<decltype(v)::value, decltype(st)::value>
-        <<<(unsigned)nb, threads, smem, s>>>(x, noise, tables, seg, T, s_max, ns, bucket,
-                                             q_is_inf != 0, out);
+  auto launch = [&](auto n) {
+    using Noise = typename decltype(n)::type;
+    if (vec == 4) {
+      segment_qdq_kernel<4, Noise><<<(unsigned)nb, threads, smem, s>>>(
+          x, noise, seed, tables, seg, T, s_max, ns, bucket, q_is_inf != 0, out);
+    } else if (vec == 2) {
+      segment_qdq_kernel<2, Noise><<<(unsigned)nb, threads, smem, s>>>(
+          x, noise, seed, tables, seg, T, s_max, ns, bucket, q_is_inf != 0, out);
+    } else {
+      segment_qdq_kernel<1, Noise><<<(unsigned)nb, threads, smem, s>>>(
+          x, noise, seed, tables, seg, T, s_max, ns, bucket, q_is_inf != 0, out);
+    }
   };
-  using V4 = std::integral_constant<int, 4>;
-  using V2 = std::integral_constant<int, 2>;
-  using V1 = std::integral_constant<int, 1>;
-  if (stochastic) {
-    if (vec == 4) launch(V4{}, std::true_type{});
-    else if (vec == 2) launch(V2{}, std::true_type{});
-    else launch(V1{}, std::true_type{});
-  } else {
-    if (vec == 4) launch(V4{}, std::false_type{});
-    else if (vec == 2) launch(V2{}, std::false_type{});
-    else launch(V1{}, std::false_type{});
-  }
+  if (stochastic) with_noise(device_prng != 0, launch); else launch(Tag<NoNoise>{});
+  return cudaGetLastError();
+}
+
+int qx_philox(const uint32_t* ctr, const uint32_t* key, long long n, uint32_t* out,
+              int device, void* stream) {
+  if (n < 0) return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  if (cudaError_t e = cudaSetDevice(device)) return e;
+  const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
+  philox_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const uint4*>(ctr), reinterpret_cast<const uint2*>(key), n,
+      reinterpret_cast<uint4*>(out));
   return cudaGetLastError();
 }
 

@@ -17,7 +17,10 @@ Random draws go through explicit sources so each can be injected for
 parity: the real batch is an argument of the step, the latent samples z
 and the gradient-penalty interpolation weights eps come from ``rng``
 (``normal`` / ``uniform``), the quantizer noise from ``noise``
-(:mod:`repro_torch.core.noise`).  Parameter trees have the reference's
+(:mod:`repro_torch.core.noise`); with
+``GANConfig(exchange=ExchangeConfig(..., use_device_prng=True))`` the
+exchange asks ``noise`` for one seed per exchange and kernel 5 draws the
+noise itself.  Parameter trees have the reference's
 structure ``{"critic": [{"b", "w"}, ...], "gen": [...]}``, flattened in
 JAX order (critic before gen, b before w), which fixes the plan layout and
 every noise draw.

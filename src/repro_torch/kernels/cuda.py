@@ -10,7 +10,8 @@ fallback to the plain versions for CUDA tensors.
 
 Every wrapper counts its launches here (:func:`count`) so a run can show
 which kernels its main path went through (:func:`launch_counts`,
-:func:`reset_launch_counts`).
+:func:`reset_launch_counts`); a device-PRNG launch counts under
+``<kernel>/prng``.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels.ref import seed_key
+
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "exchange_kernels.cu"
 BUILD_DIR = _PKG.parents[1] / "build" / "torch_kernels"
@@ -34,20 +37,30 @@ NVCC_FLAGS = (
     # products and sums as the reference (see the source's header)
     "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
 )
+# the launch counters: one per kernel, and one per device-PRNG variant
+# ("<kernel>/prng": the same kernel drawing its noise with Philox), so a
+# run shows which of the two its path took; "philox" is the test entry
+# that writes raw Philox words
+PRNG = "/prng"
 KERNELS = ("quantize_blocks", "dequant_reduce_requantize_blocks",
-           "dequantize_blocks", "dequant_reduce_blocks", "quantize_dequantize_segments")
+           "dequantize_blocks", "dequant_reduce_blocks", "quantize_dequantize_segments",
+           "quantize_blocks/prng", "dequant_reduce_requantize_blocks/prng",
+           "quantize_dequantize_segments/prng", "philox")
 
 _LAUNCHES = {name: 0 for name in KERNELS}
 _LIB = None
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_U64 = ctypes.c_ulonglong
 _SIGNATURES = {
-    "qx_quantize": (_P, _P, _P, _I, _LL, _I, _I, _I, _P, _P, _I, _P),
+    # noise buffer (None with the device PRNG), seed, device_prng flag, ...
+    "qx_quantize": (_P, _P, _U64, _I, _P, _I, _LL, _I, _I, _I, _P, _P, _I, _P),
     "qx_dequantize": (_P, _P, _P, _I, _LL, _I, _I, _P, _I, _P),
     "qx_dequant_reduce": (_P, _P, _P, _I, _I, _LL, _I, _I, _F, _P, _I, _P),
-    "qx_dequant_reduce_requantize": (_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _F,
+    "qx_dequant_reduce_requantize": (_P, _P, _P, _U64, _I, _P, _I, _I, _LL, _I, _I, _I, _F,
                                      _P, _P, _I, _P),
-    "qx_segment_qdq": (_P, _P, _P, _P, _I, _I, _P, _LL, _I, _I, _I, _P, _I, _P),
+    "qx_segment_qdq": (_P, _P, _U64, _I, _P, _P, _I, _I, _P, _LL, _I, _I, _I, _P, _I, _P),
+    "qx_philox": (_P, _P, _LL, _P, _I, _P),
 }
 
 
@@ -131,6 +144,20 @@ def call(fn_name: str, kernel: str, device: torch.device, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{fn_name} launch failed: cudaError {rc}")
     count(kernel)
+
+
+def rounding(noise, seed, rows: int, bucket: int):
+    """Check a kernel's rounding arguments: exactly one of the ``[rows,
+    bucket]`` uniform noise buffer and the device PRNG's 64-bit ``seed``.
+    Returns the launch counter's suffix (``PRNG`` with a seed)."""
+    if (noise is None) == (seed is None):
+        raise ValueError("pass exactly one of the noise buffer and the device-PRNG seed")
+    if seed is not None:
+        seed_key(seed)  # raises unless a 64-bit unsigned integer
+        return PRNG
+    if tuple(noise.shape) != (rows, bucket):
+        raise ValueError(f"noise shape {tuple(noise.shape)} != {(rows, bucket)}")
+    return ""
 
 
 def prepare(t: torch.Tensor, dtype: torch.dtype, device: torch.device) -> torch.Tensor:

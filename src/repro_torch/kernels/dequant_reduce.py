@@ -18,7 +18,13 @@ Bound on the H100: device-memory traffic — K payload rows read, one f32
 row written; the K dequantized rows stay in registers.
 
 Both give each bucket row one thread block with the level table in shared
-memory (``csrc/exchange_kernels.cu``).  CPU tensors go to the plain
+memory (``csrc/exchange_kernels.cu``).  Kernel 2 has a device-PRNG
+variant (``seed=`` in place of ``noise``; TPU kernel B5 at its call site
+``repro/kernels/dequant_reduce.py:124``): the re-quantize draw is made
+with Philox4x32-10 in registers, so of kernel 2's traffic only the K
+payloads in and the payload out remain (2.2 GB instead of 6.6 GB at the
+tinyllama-1.1b buffer, K = 1), and ~25 integer operations per
+coordinate likely bound it instead.  CPU tensors go to the plain
 versions; CUDA tensors launch the kernel or raise.
 """
 
@@ -66,27 +72,29 @@ def dequant_reduce_blocks(idx: torch.Tensor, norms: torch.Tensor, levels: torch.
 
 
 def dequant_reduce_requantize_blocks(idx: torch.Tensor, norms: torch.Tensor,
-                                     levels: torch.Tensor, noise: torch.Tensor, *,
+                                     levels: torch.Tensor, noise, *,
                                      num_symbols: int, num_workers: int,
-                                     q_is_inf: bool, bits: int = 8):
-    """Fused DEQ + mean + re-quantize -> (payload [nb, P] int8, norms [nb])."""
+                                     q_is_inf: bool, bits: int = 8, seed=None):
+    """Fused DEQ + mean + re-quantize -> (payload [nb, P] int8, norms [nb]).
+
+    The re-quantize noise is ``noise`` ([nb, bucket] uniform) or, with
+    ``noise=None``, the device PRNG's draw of ``seed`` (exactly one)."""
     K, nb, bucket = _check(idx, norms, levels, num_symbols, num_workers, bits)
-    if tuple(noise.shape) != (nb, bucket):
-        raise ValueError(f"noise shape {tuple(noise.shape)} != {(nb, bucket)}")
+    variant = cuda.rounding(noise, seed, nb, bucket)
     if idx.device.type != "cuda":
         return dequant_reduce_requantize_blocks_plain(
             idx, norms, levels, noise, num_symbols=num_symbols, q_is_inf=q_is_inf,
-            bits=bits)
+            bits=bits, seed=seed)
     dev = idx.device
     p = cuda.prepare(idx, torch.int8, dev)
     nrm = cuda.prepare(norms, torch.float32, dev)
-    r = cuda.prepare(noise, torch.float32, dev)
+    r = cuda.prepare(noise, torch.float32, dev) if seed is None else None
     lv = cuda.prepare(levels, torch.float32, dev)
     out = torch.empty((nb, bucket if bits == 8 else bucket // 2), dtype=torch.int8,
                       device=dev)
     onorms = torch.empty((nb,), dtype=torch.float32, device=dev)
-    cuda.call("qx_dequant_reduce_requantize", "dequant_reduce_requantize_blocks", dev,
-              p.data_ptr(), nrm.data_ptr(), r.data_ptr(), lv.data_ptr(), num_symbols, K,
-              nb, bucket, int(q_is_inf), bits, inv_workers(K), out.data_ptr(),
-              onorms.data_ptr())
+    cuda.call("qx_dequant_reduce_requantize", "dequant_reduce_requantize_blocks" + variant,
+              dev, p.data_ptr(), nrm.data_ptr(), None if r is None else r.data_ptr(),
+              int(seed or 0), seed is not None, lv.data_ptr(), num_symbols, K, nb, bucket,
+              int(q_is_inf), bits, inv_workers(K), out.data_ptr(), onorms.data_ptr())
     return out, onorms

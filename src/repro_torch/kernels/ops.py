@@ -13,6 +13,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.noise import draw_rounding
 from repro_torch.core.quantization import QuantConfig, pad_to_buckets
 from repro_torch.kernels.dequantize import dequantize_blocks
 from repro_torch.kernels.quantize import quantize_blocks
@@ -31,13 +32,15 @@ class Quantized:
                    + self.norms.numel() * 4)
 
 
-def quantize_flat(v: torch.Tensor, levels: torch.Tensor, noise, cfg: QuantConfig) -> Quantized:
+def quantize_flat(v: torch.Tensor, levels: torch.Tensor, noise, cfg: QuantConfig, *,
+                  use_device_prng: bool = False) -> Quantized:
     """Quantize a flat vector; ``noise`` is a noise source
-    (:mod:`repro_torch.core.noise`) asked for one [nb, bucket] draw."""
+    (:mod:`repro_torch.core.noise`) asked for one [nb, bucket] draw, or,
+    with ``use_device_prng``, for one seed of the kernel's own draw."""
     x2d, n = pad_to_buckets(v.reshape(-1).float(), cfg.bucket_size)
-    r = noise.uniform(x2d.shape, x2d.device)
+    r, seed = draw_rounding(noise, x2d.shape, x2d.device, use_device_prng)
     idx, norms = quantize_blocks(x2d, r, levels, num_symbols=cfg.num_symbols,
-                                 q_is_inf=cfg.q_is_inf, bits=cfg.bits)
+                                 q_is_inf=cfg.q_is_inf, bits=cfg.bits, seed=seed)
     return Quantized(payload=idx.reshape(-1), norms=norms, n=n)
 
 

@@ -11,13 +11,81 @@ ROADMAP.md), and these functions equal the Pallas kernels bit for bit.
 
 Each ``*_blocks_plain`` function is the plain version of one CUDA kernel
 in :mod:`repro_torch.kernels`: the wrapper there runs it for CPU tensors,
-and ``chip_smoke.py`` holds the kernel against it on the card.
+and ``chip_smoke.py`` holds the kernel against it on the card.  Given a
+``seed`` in place of the noise buffer, each first draws that buffer with
+:func:`philox_uniform`, the plain version of the kernels' in-kernel draw
+(the port of ``repro/kernels/common.py::prng_uniform``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+# -- the device-PRNG draw: Philox4x32-10 ------------------------------------
+
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)  # round multipliers (Random123)
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)  # key schedule increments
+_MASK32 = 0xFFFFFFFF
+SEED_LIMIT = 1 << 64  # seeds are 64-bit: the two words of the Philox key
+
+
+def _mulhilo(m: int, x: torch.Tensor):
+    """(high, low) 32-bit words of ``m * x`` for ``x`` in [0, 2^32) held in
+    int64.  ``m`` is split into 16-bit halves so that no partial product
+    reaches 2^63."""
+    a = x * (m >> 16)  # < 2^48
+    b = x * (m & 0xFFFF)  # < 2^48
+    c = ((a & 0xFFFF) << 16) + b  # < 2^49
+    return (a >> 16) + (c >> 32), c & _MASK32
+
+
+def philox4x32_10(ctr, key):
+    """Philox4x32-10 (Salmon et al., SC'11): four int64 tensors of 32-bit
+    counter words (broadcastable) and a key of two 32-bit ints -> the four
+    output words, broadcast to one shape."""
+    c0, c1, c2, c3 = ctr
+    k0, k1 = key
+    for i in range(10):
+        if i:
+            k0, k1 = (k0 + PHILOX_W[0]) & _MASK32, (k1 + PHILOX_W[1]) & _MASK32
+        hi0, lo0 = _mulhilo(PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return torch.broadcast_tensors(c0, c1, c2, c3)
+
+
+def seed_key(seed: int) -> tuple:
+    """The Philox key of a 64-bit seed: (low word, high word)."""
+    seed = int(seed)
+    if not 0 <= seed < SEED_LIMIT:
+        raise ValueError(f"seed {seed} is not a 64-bit unsigned integer")
+    return seed & _MASK32, seed >> 32
+
+
+def philox_uniform(seed: int, row0: int, rows: int, bucket: int, device) -> torch.Tensor:
+    """The device-PRNG rounding noise of rows ``[row0, row0 + rows)`` of a
+    launch: coordinate (row, col) is output word ``col % 4`` of
+    Philox4x32-10 at counter ``(row, col // 4, 0, 0)`` under the key
+    :func:`seed_key` (``seed``), mapped to the reference's 24-bit grid
+    ``((w >> 8) & 0xFFFFFF) * 2^-24`` in [0, 1).  A draw depends only on
+    (seed, row, col): not on the block, the tile or the bucket width.
+    Returns [rows, bucket] f32 on ``device``."""
+    key = seed_key(seed)
+    if row0 < 0 or row0 + rows > 1 << 32:
+        raise ValueError(f"rows [{row0}, {row0 + rows}) do not fit a 32-bit counter")
+    r = torch.arange(row0, row0 + rows, dtype=torch.int64, device=device)[:, None]
+    q = torch.arange(-(-bucket // 4), dtype=torch.int64, device=device)[None, :]
+    z = torch.zeros((), dtype=torch.int64, device=device)
+    w = torch.stack(philox4x32_10((r, q, z, z), key), dim=-1).reshape(rows, -1)[:, :bucket]
+    return ((w >> 8) & 0xFFFFFF).to(torch.float32) * 2.0**-24
+
+
+def _noise_of(noise, seed, rows: int, bucket: int, device):
+    """The rounding noise of a plain version: the given buffer, or the
+    device-PRNG draw of ``seed``."""
+    return noise if seed is None else philox_uniform(seed, 0, rows, bucket, device)
 
 
 def inv_workers(num_workers: int) -> float:
@@ -105,10 +173,10 @@ def mean_rows(idx: torch.Tensor, norms: torch.Tensor, lv: torch.Tensor,
 # -- the plain version of each kernel ---------------------------------------
 
 
-def quantize_blocks_plain(x2d, noise, levels, *, num_symbols, q_is_inf, bits):
+def quantize_blocks_plain(x2d, noise, levels, *, num_symbols, q_is_inf, bits, seed=None):
     """Plain version of kernel 1 (``quantize_blocks``)."""
-    signed, norms = quant_rows(x2d.float(), levels.float(), noise.float(),
-                               num_symbols, q_is_inf)
+    r = _noise_of(noise, seed, *x2d.shape, x2d.device)
+    signed, norms = quant_rows(x2d.float(), levels.float(), r.float(), num_symbols, q_is_inf)
     return pack_payload(signed, bits), norms
 
 
@@ -123,11 +191,12 @@ def dequant_reduce_blocks_plain(idx, norms, levels, *, bits):
 
 
 def dequant_reduce_requantize_blocks_plain(idx, norms, levels, noise, *,
-                                           num_symbols, q_is_inf, bits):
+                                           num_symbols, q_is_inf, bits, seed=None):
     """Plain version of kernel 2 (``dequant_reduce_requantize_blocks``)."""
     lv = levels.float()
     reduced = mean_rows(idx, norms.float(), lv, bits)
-    signed, norms2 = quant_rows(reduced, lv, noise.float(), num_symbols, q_is_inf)
+    r = _noise_of(noise, seed, *reduced.shape, reduced.device)
+    signed, norms2 = quant_rows(reduced, lv, r.float(), num_symbols, q_is_inf)
     return pack_payload(signed, bits), norms2
 
 
@@ -174,8 +243,10 @@ def segment_quant_dequant_rows(x: torch.Tensor, tables: torch.Tensor, seg: torch
 
 
 def quantize_dequantize_segments_plain(x2d, noise, tables, seg_ids, *, num_symbols,
-                                       q_is_inf, stochastic=True):
+                                       q_is_inf, stochastic=True, seed=None):
     """Plain version of kernel 5 (``quantize_dequantize_segments``)."""
+    if stochastic:
+        noise = _noise_of(noise, seed, *x2d.shape, x2d.device)
     return segment_quant_dequant_rows(
         x2d.float(), tables.float(), seg_ids, None if noise is None else noise.float(),
         num_symbols=tuple(num_symbols), q_is_inf=q_is_inf, stochastic=stochastic)

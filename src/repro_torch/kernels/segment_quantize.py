@@ -19,6 +19,11 @@ one thread block, stages the stacked tables in shared memory, reads x and
 the noise with 16-byte loads (the norm pass re-reads the row from L1/L2,
 not HBM) and writes the row once.
 
+Device-PRNG variant (``seed=`` in place of ``noise``; TPU kernel B5 at
+its call site ``repro/kernels/segment_quantize.py:50``): the noise is
+drawn with Philox4x32-10 in registers, 8 B per coordinate moved instead
+of 12 (8.81 GB at the tinyllama-1.1b buffer), still bytes-bound.
+
 CPU tensors go to the plain version :func:`quantize_dequantize_segments_plain`
 (same arithmetic, bit-identical); CUDA tensors launch the kernel or raise.
 """
@@ -35,13 +40,16 @@ from repro_torch.kernels.ref import quantize_dequantize_segments_plain  # noqa: 
 
 def quantize_dequantize_segments(x2d: torch.Tensor, noise, tables: torch.Tensor,
                                  seg_ids: torch.Tensor, *, num_symbols: tuple,
-                                 q_is_inf: bool, stochastic: bool = True) -> torch.Tensor:
+                                 q_is_inf: bool, stochastic: bool = True,
+                                 seed=None) -> torch.Tensor:
     """Fused Q∘DEQ of [nb, bucket] f32 under per-row level tables.
 
-    ``noise``: [nb, bucket] uniform [0, 1) (``None`` when
-    ``stochastic=False``); ``tables``: [T, S_max] f32; ``seg_ids``: [nb]
-    int32 table id per row; ``num_symbols``: live symbols per table.
-    Returns the [nb, bucket] f32 estimate.
+    ``noise``: [nb, bucket] uniform [0, 1), or ``None`` with the device
+    PRNG's 64-bit ``seed`` (stochastic rounding takes exactly one of the
+    two; nearest rounding, ``stochastic=False``, reads neither);
+    ``tables``: [T, S_max] f32; ``seg_ids``: [nb] int32 table id per row;
+    ``num_symbols``: live symbols per table.  Returns the [nb, bucket] f32
+    estimate.
     """
     nb, bucket = x2d.shape
     num_symbols = tuple(int(n) for n in num_symbols)
@@ -52,23 +60,24 @@ def quantize_dequantize_segments(x2d: torch.Tensor, noise, tables: torch.Tensor,
         raise ValueError(f"num_symbols {num_symbols} outside [2, {s_max}]")
     if tuple(seg_ids.shape) != (nb,):
         raise ValueError(f"seg_ids must be [nb]={nb}, got {tuple(seg_ids.shape)}")
+    variant = ""
     if stochastic:
-        if noise is None:
-            raise ValueError("stochastic rounding needs the uniform noise buffer")
-        if tuple(noise.shape) != (nb, bucket):
-            raise ValueError(f"noise shape {tuple(noise.shape)} != {(nb, bucket)}")
+        variant = cuda.rounding(noise, seed, nb, bucket)
+    else:
+        noise = seed = None
     if x2d.device.type != "cuda":
         return quantize_dequantize_segments_plain(
-            x2d, noise if stochastic else None, tables, seg_ids, num_symbols=num_symbols,
-            q_is_inf=q_is_inf, stochastic=stochastic)
+            x2d, noise, tables, seg_ids, num_symbols=num_symbols, q_is_inf=q_is_inf,
+            stochastic=stochastic, seed=seed)
     dev = x2d.device
     x = cuda.prepare(x2d, torch.float32, dev)
-    r = cuda.prepare(noise, torch.float32, dev) if stochastic else None
+    r = cuda.prepare(noise, torch.float32, dev) if noise is not None else None
     tab = cuda.prepare(tables, torch.float32, dev)
     seg = cuda.prepare(seg_ids, torch.int32, dev)
     out = torch.empty((nb, bucket), dtype=torch.float32, device=dev)
     counts = (ctypes.c_int * T)(*num_symbols)
-    cuda.call("qx_segment_qdq", "quantize_dequantize_segments", dev, x.data_ptr(),
-              None if r is None else r.data_ptr(), tab.data_ptr(), seg.data_ptr(), T,
-              s_max, counts, nb, bucket, int(q_is_inf), int(stochastic), out.data_ptr())
+    cuda.call("qx_segment_qdq", "quantize_dequantize_segments" + variant, dev, x.data_ptr(),
+              None if r is None else r.data_ptr(), int(seed or 0), seed is not None,
+              tab.data_ptr(), seg.data_ptr(), T, s_max, counts, nb, bucket, int(q_is_inf),
+              int(stochastic), out.data_ptr())
     return out

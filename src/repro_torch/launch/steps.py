@@ -21,7 +21,10 @@ model's parameters in place (X_{t+1/2} while the second gradient is taken,
 then X_{t+1}) and returns the new optimizer and exchange states with the
 ``loss`` and ``wire_bytes`` metrics.  The guard, fault schedules,
 ``sync_every`` and re-centering are not ported: ``make_train_step`` has
-no parameter for them.
+no parameter for them.  The device-PRNG exchange needs no parameter here
+either: it comes in with the exchange,
+``make_exchange(ExchangeConfig(..., use_device_prng=True))``, and the
+step's ``noise`` source is then asked for seeds instead of arrays.
 """
 
 from __future__ import annotations

@@ -16,7 +16,9 @@ rank and world size read here::
 
 Unlike the reference CLI, the exchange runs at K = 1 too whenever there is
 something to compress (the world-size-1 communicator), so one card drives
-every exchange kernel.
+every exchange kernel.  As in the reference, no flag selects the
+device-PRNG exchange: a caller of :func:`run` passes
+``exchange=ExchangeConfig(..., use_device_prng=True)``.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import argparse
 import dataclasses
 import os
 import time
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -104,9 +107,11 @@ def _init_distributed(device: torch.device):
     return ProcessGroupComm(), rank, world, device
 
 
-def run(args, log=print) -> dict:
+def run(args, log=print, exchange: Optional[ExchangeConfig] = None) -> dict:
     """Train per ``args``; returns ``{"loss": [...], "wire_bytes": [...],
-    "step_s": [...]}`` (one entry per step, replicated over workers)."""
+    "step_s": [...]}`` (one entry per step, replicated over workers).
+    ``exchange`` replaces the exchange config the flags give (for fields
+    that have no flag, such as ``use_device_prng``)."""
     device = resolve_device(args.device)
     comm, rank, world, device = _init_distributed(device)
     try:
@@ -120,7 +125,7 @@ def run(args, log=print) -> dict:
         opt_cfg = OptimizerConfig(name=args.optimizer, lr=args.lr,
                                   gamma_scale=args.gamma_scale, method=args.method)
         opt_state = opt.init_state(opt_cfg, model.param_leaves())
-        ex = make_exchange(build_exchange_config(args), comm)
+        ex = make_exchange(exchange or build_exchange_config(args), comm)
         ex_state = ex.init_state(device)
         step_fn = make_train_step(model, opt_cfg, ex)
         noise = GeneratorNoise.seeded((args.seed << 16) + rank, device)

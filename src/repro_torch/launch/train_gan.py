@@ -11,7 +11,9 @@ uq4 (s = 5, 4 bit) and layerwise (uq4 for leaves above 2048 coordinates,
 so the 64 x 64 hidden matrices take the low-bit path; uq8 for the rest).
 The randk arm (``--arms randk25``) raises ``ValueError``: randk is not
 ported yet.  Prints energy distance, median ms/step and bytes per step per
-worker for each arm.
+worker for each arm.  No flag selects the device-PRNG exchange (the
+reference has none): it is ``GANConfig(exchange=ExchangeConfig(...,
+use_device_prng=True))`` passed to :func:`repro_torch.gan.wgan.train`.
 """
 
 from __future__ import annotations

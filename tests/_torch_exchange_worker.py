@@ -3,7 +3,8 @@
 Imported by ``torch.multiprocessing`` ``spawn`` children (never fork), so
 it imports torch and the port only.  Each worker joins a process group on
 a ``FileStore``, runs every case's quantized mean on its own vector with
-the noise it was handed (:func:`run`; :func:`run_layerwise` takes the
+the noise it was handed, or with the device-PRNG exchange where it was
+handed seeds instead (:func:`run`; :func:`run_layerwise` takes the
 layerwise ``Exchange.pmean_tree`` of a small pytree instead), saves the
 result and destroys the group.  :func:`run_group` starts the workers,
 joins them under a hard timeout and returns their outputs.
@@ -33,12 +34,16 @@ def run(rank, world, store_path, in_path, out_dir, cases, backend, device):
         for i, (mode, bits, q_norm, bucket) in enumerate(cases):
             s = 15 if bits == 8 else 5
             cfg = QuantConfig(num_levels=s, bits=bits, bucket_size=bucket, q_norm=q_norm)
-            draws = [data[f"n1_{i}_{rank}"]]
+            # seeds s1_/s2_ in place of the noise n1_/n2_: the device PRNG
+            prng = f"s1_{i}_{rank}" in data.files
+            tag = "s" if prng else "n"
+            draws = [data[f"{tag}1_{i}_{rank}"]]
             if mode == "two_phase":
-                draws.append(data[f"n2_{i}_{rank}"])
-            noise = ReplayNoise(draws)
+                draws.append(data[f"{tag}2_{i}_{rank}"])
+            noise = ReplayNoise([int(d) for d in draws] if prng else draws)
             x = torch.from_numpy(data[f"x_{i}_{rank}"]).to(dev)
-            out = qgenx_pmean(x, comm, uniform_levels(s, dev), noise, cfg, mode)
+            out = qgenx_pmean(x, comm, uniform_levels(s, dev), noise, cfg, mode,
+                              use_device_prng=prng)
             if noise.remaining:
                 raise RuntimeError("not every noise draw was used")
             np.save(f"{out_dir}/out_{i}_{rank}.npy", out.cpu().numpy())
@@ -96,7 +101,8 @@ def run_layerwise(rank, world, store_path, in_path, out_dir, cases, backend, dev
 def run_group(K, workdir, inputs, cases, backend="gloo", device="cpu", while_running=None,
               target=run):
     """Run K workers of ``target`` over ``inputs`` (for :func:`run`, keys
-    ``x_/n1_/n2_{case}_{rank}``); returns ``outs[case][rank]`` and
+    ``x_/n1_/n2_{case}_{rank}``, or ``s1_/s2_`` seeds for the device
+    PRNG); returns ``outs[case][rank]`` and
     ``while_running()``'s result (called in this process while the
     workers run)."""
     import torch.multiprocessing as mp

@@ -53,7 +53,7 @@ def test_constructors_take_no_default_device(make):
     dict(compressor="ef21-topk"), dict(compressor="qgenx"),
     dict(quant=Q8, mode="leafwise"), dict(quant=Q8, level_schedule="qada"),
     dict(quant=Q8, sync_every=2), dict(quant=Q8, recenter_every=3),
-    dict(quant=Q8, num_buckets=2, overlap="bucketed"), dict(quant=Q8, use_device_prng=True),
+    dict(quant=Q8, num_buckets=2, overlap="bucketed"), dict(quant=Q8, allreduce_fallback=True),
     dict(quant=Q8, use_plan=False),
 ])
 def test_unported_exchange_options_are_rejected(kwargs):
@@ -61,6 +61,23 @@ def test_unported_exchange_options_are_rejected(kwargs):
     # have yet is an unknown keyword, TypeError
     with pytest.raises((TypeError, ValueError)):
         ExchangeConfig(**kwargs)
+
+
+def test_device_prng_option_is_accepted():
+    assert ExchangeConfig(quant=Q8, use_device_prng=True).use_device_prng
+    assert not ExchangeConfig(quant=Q8).use_device_prng
+
+
+def test_none_compressor_ignores_the_device_prng():
+    # as in the reference: the exact mean draws no noise and asks no seed
+    ex = make_exchange(ExchangeConfig(compressor="none", use_device_prng=True))
+    tree = {"a": torch.randn(3, 5), "b": torch.randn(7)}
+    mean, state = ex.pmean_tree(tree, ex.init_state("cpu"), ReplayNoise([]))
+    assert state.step == 1
+    assert all(torch.equal(mean[k], tree[k]) for k in tree)
+    out = ex.compress_tree({k: v.unsqueeze(0) for k, v in tree.items()}, ReplayNoise([]),
+                           workers=True)
+    assert all(torch.equal(out[k][0], tree[k]) for k in tree)
 
 
 def test_unported_optimizer_and_step_options_are_rejected():

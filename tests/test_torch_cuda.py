@@ -97,6 +97,74 @@ def test_segment_kernel_matches_plain_version(dev, T, q_is_inf, stochastic):
         assert torch.allclose(got, want, rtol=1e-6, atol=0, equal_nan=True)
 
 
+def test_philox_known_answer_vectors_on_the_card(dev):
+    """The kernels' device Philox (through its test entry) gives Random123's
+    known answers, and the plain version's words on random counters."""
+    from repro_torch.kernels.prng import philox_words
+
+    kat = [((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+           ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
+            (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+           ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+            (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1))]
+    ctr = torch.tensor([c for c, _, _ in kat], dtype=torch.int64)
+    key = torch.tensor([k for _, k, _ in kat], dtype=torch.int64)
+    got = philox_words(ctr.to(dev), key.to(dev)).cpu()
+    assert got.tolist() == [list(w) for _, _, w in kat]
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    ctr = torch.randint(0, 1 << 32, (1000, 4), generator=gen, dtype=torch.int64)
+    key = torch.randint(0, 1 << 32, (1000, 2), generator=gen, dtype=torch.int64)
+    assert torch.equal(philox_words(ctr.to(dev), key.to(dev)).cpu(), philox_words(ctr, key))
+
+
+@pytest.mark.parametrize("q_is_inf", [True, False])
+@pytest.mark.parametrize("bits,bucket", [(8, 512), (4, 512), (8, 130), (4, 130), (8, 1023)])
+def test_device_prng_kernels_match_host_noise_kernels(dev, bits, bucket, q_is_inf):
+    """Kernels 1, 2 and 5 drawing their own noise equal the same kernels fed
+    philox_uniform's draw of the seed, materialized on the card: payload
+    bytes, norms and estimates bit for bit (the same arithmetic on the same
+    noise); and, at q = inf, the plain versions on the CPU."""
+    from repro_torch.core.exchange_plan import stack_level_tables
+
+    s = 15 if bits == 8 else 5
+    lv = uniform_levels(s, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(bits + bucket)
+    nb, seed = 37, 0x0123456789ABCDEF
+    x = torch.randn((nb, bucket), generator=gen, device=dev) * 3
+    x[5] = 0
+    r = ref.philox_uniform(seed, 0, nb, bucket, dev)
+    kw = dict(num_symbols=s + 2, q_is_inf=q_is_inf, bits=bits)
+    before = cuda.launch_counts()
+    pk, nk = quantize_blocks(x, None, lv, seed=seed, **kw)
+    ph, nh = quantize_blocks(x, r, lv, **kw)
+    assert torch.equal(pk, ph) and torch.equal(nk, nh)
+    P, N = torch.stack([pk, pk.flip(0)]), torch.stack([nk, nk.flip(0)])
+    qk, mk = dequant_reduce_requantize_blocks(P, N, lv, None, num_workers=2, seed=seed, **kw)
+    qh, mh = dequant_reduce_requantize_blocks(P, N, lv, r, num_workers=2, **kw)
+    assert torch.equal(qk, qh) and torch.equal(mk, mh)
+    for T in (1, 2):
+        tables, ns = stack_level_tables([lv, uniform_levels(5, dev)][:T])
+        seg = torch.randint(0, T, (nb,), generator=gen, device=dev, dtype=torch.int32)
+        kw5 = dict(num_symbols=ns, q_is_inf=q_is_inf)
+        ek = quantize_dequantize_segments(x, None, tables, seg, seed=seed, **kw5)
+        assert torch.equal(ek, quantize_dequantize_segments(x, r, tables, seg, **kw5))
+        if q_is_inf:
+            assert torch.equal(ek.cpu(), ref.quantize_dequantize_segments_plain(
+                x.cpu(), None, tables.cpu(), seg.cpu(), seed=seed, **kw5))
+    if q_is_inf:
+        pp, npl = ref.quantize_blocks_plain(x.cpu(), None, lv.cpu(), seed=seed, **kw)
+        assert torch.equal(pk.cpu(), pp) and torch.equal(nk.cpu(), npl)
+        qp, mp = ref.dequant_reduce_requantize_blocks_plain(P.cpu(), N.cpu(), lv.cpu(), None,
+                                                            seed=seed, **kw)
+        assert torch.equal(qk.cpu(), qp) and torch.equal(mk.cpu(), mp)
+    after = cuda.launch_counts()
+    assert [after[k] - before[k] for k in ("quantize_blocks/prng",
+                                           "dequant_reduce_requantize_blocks/prng",
+                                           "quantize_dequantize_segments/prng")] == [1, 1, 2]
+
+
 def test_nccl_exchange_matches_gloo(tmp_path):
     """K > 1 on cards: the exchange over NCCL with the CUDA kernels gives
     the same means as over gloo with the plain versions (the path held to
