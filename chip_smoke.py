@@ -5,23 +5,31 @@ Run from the repo root with no arguments: ``python3 chip_smoke.py``.  It
 imports only ``repro_torch`` (from ``src/`` beside this file) and:
 
 1. prints the card (``nvidia-smi --query-gpu=name,power.limit``);
-2. builds the CUDA exchange kernels from ``src/repro_torch/csrc`` and
-   counts the integer instructions of the device PRNG (Philox4x32-10)
-   in the SASS of its test entry (``cuobjdump -sass``): the integer term
-   of the device-PRNG variants' bound;
+2. builds the CUDA exchange kernels from ``src/repro_torch/csrc``, prints
+   the registers, shared memory and spills of kernels 1 and 2 from the
+   ``-Xptxas=-v`` report with the occupancy they imply, and counts the
+   integer instructions of the device PRNG (Philox4x32-10) in the SASS
+   of its test entry (``cuobjdump -sass``): the integer term of the
+   device-PRNG variants' bound;
 3. holds every kernel against its plain PyTorch version on the card over
-   bits {4, 8} x q_norm {inf, 2} x K {1, 2, 8}, with a row count that is
-   not a multiple of any tile and with all-zero rows: payload indices and
-   packed bytes exactly equal for q = inf (for q = 2, exactly equal in
-   every row whose norm is bit-identical, else at most one level apart),
-   f32 outputs and norms within rtol 1e-6.  Kernel 5 (segment-fused
+   bits {4, 8} x q_norm {inf, 2} x K {1, 2, 8} x bucket {512, 130, 2,
+   1024, 4096, and 1023 for int8}, with 37 rows (not a multiple of any
+   tile) and with more rows than the card holds warps (kernels 1 and 2's
+   grid-stride loop wraps), all-zero rows and a NaN row (a NaN
+   coordinate for kernel 1, a NaN worker norm for kernels 2 and 4), and
+   kernels 1 and 2 with exponential level tables (both bracket searches):
+   payload indices and packed bytes exactly equal for q = inf (for q = 2,
+   exactly equal in every row whose norm is bit-identical, else at most
+   one level apart), f32 outputs and norms within rtol 1e-6 with NaN in
+   the same places.  Kernel 5 (segment-fused
    quantize∘dequantize) over T {1, 2, 3} stacked tables with mixed symbol
    counts x q_norm {inf, 2} x stochastic / nearest rounding, with zero
    rows and a NaN row: bit-equal for q = inf, rtol 1e-6 for q = 2.  The
    device PRNG (TPU kernel B5): Philox's known-answer vectors through its
    test entry, then kernels 1 (int8, int4), 2 and 5 (T = 1, 2) drawing
-   their own noise, bit-equal to the same kernels fed ``philox_uniform``'s
-   draw of the seed on the card, and held to the plain versions;
+   their own noise (kernels 1 and 2 at the same buckets, rows and NaN
+   rows), bit-equal to the same kernels fed ``philox_uniform``'s draw of
+   the seed on the card, and held to the plain versions;
 4. drives the paths, each run with the launch counts reset just before
    it and read just after:
    a. the LM train step through the training entry point
@@ -104,6 +112,11 @@ REPLACES = {
 PRNG_KERNELS = ("quantize_blocks/prng", "dequant_reduce_requantize_blocks/prng",
                 "quantize_dequantize_segments/prng")
 GAN_STEPS = 300
+# H100 per-SM limits (sm_90): warps, blocks, 32-bit registers (in four
+# partitions, allocated per warp in units of 256) and shared memory (1 KB
+# of it reserved per block)
+SM_WARPS, SM_BLOCKS, SM_REGS, SM_SMEM = 64, 32, 65536, 233472
+ROW_KERNEL_THREADS = 256  # kernels 1 and 2: 8 warps a block, one row each
 PRNG_SEED = 0x9E3779B97F4A7C15  # the device-PRNG seed of the parity and timing phases
 
 
@@ -127,12 +140,17 @@ def log(msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _rand_payload(torch, gen, K, nb, bucket, s, bits, zero_rows, dev):
+def _rand_payload(torch, gen, K, nb, bucket, s, bits, zero_rows, dev, nan_row=None):
+    """K workers' random payloads and norms: all-zero rows at ``zero_rows``
+    and, with ``nan_row``, the last worker's norm NaN there (the row's
+    K-mean is then NaN throughout)."""
     idx = torch.randint(-(s + 1), s + 2, (K, nb, bucket), generator=gen, device=dev,
                         dtype=torch.int32)
     norms = torch.rand((K, nb), generator=gen, device=dev) * 3 + 0.1
     idx[:, zero_rows] = 0
     norms[:, zero_rows] = 0.0
+    if nan_row is not None:
+        norms[K - 1, nan_row] = float("nan")
     from repro_torch.kernels.ref import pack_payload
 
     payload = torch.stack([pack_payload(idx[k], bits) for k in range(K)])
@@ -157,17 +175,38 @@ def _check_indices(torch, name, got, want, bits, q_is_inf, norms_got, norms_want
 
 
 def _close(torch, name, got, want, rtol=1e-6):
+    """NaN in the same places, every other value within ``rtol``; returns
+    the max abs error over the finite-in-both values."""
+    nan = want.isnan()
+    if not torch.equal(got.isnan(), nan):
+        fail(f"{name}: NaN positions differ from the plain version")
+    got, want = got.masked_fill(nan, 0.0), want.masked_fill(nan, 0.0)
     if not torch.allclose(got, want, rtol=rtol, atol=0.0):
         err = float((got - want).abs().max())
         fail(f"{name}: f32 outputs differ beyond rtol {rtol} (max abs err {err:.3e})")
     return float((got - want).abs().max())
 
 
+def _same(torch, got, want) -> bool:
+    """Bit-equal tensors, NaN equal to NaN in the same places."""
+    if got.is_floating_point():
+        return (torch.equal(got.isnan(), want.isnan())
+                and torch.equal(got.nan_to_num(), want.nan_to_num()))
+    return torch.equal(got, want)
+
+
+def wrap_rows(torch) -> int:
+    """A row count that makes kernels 1 and 2's grid-stride loop wrap: more
+    rows than warps the card can hold at once (64 per SM, one row per
+    warp), and not a multiple of the 8 rows of a block."""
+    return torch.cuda.get_device_properties(0).multi_processor_count * 64 + 37
+
+
 def kernel_parity(torch) -> dict:
     """Every kernel vs its plain version on the card; returns the max abs
     error of each kernel's f32 output (dequantized for the payload
     kernels) over all cases."""
-    from repro_torch.core.quantization import uniform_levels
+    from repro_torch.core.quantization import exponential_levels, uniform_levels
     from repro_torch.kernels import ref
     from repro_torch.kernels.dequant_reduce import (
         dequant_reduce_blocks,
@@ -180,19 +219,25 @@ def kernel_parity(torch) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     errs = {k: 0.0 for k in REPLACES}
-    nb = 37  # not a multiple of any tile
-    zero_rows = [0, 17]
+    zero_rows, nan_row = [0, 17], 5
     cases = 0
+    # 37 rows: not a multiple of any tile; wrap_rows: kernels 1 and 2's
+    # grid-stride loop wraps.  Buckets 2 and 1023 (VEC 2 and 1), 130 (a
+    # ragged last chunk), 512 (one warp's registers), 1024 (QuantConfig's
+    # default) and 4096 (wider than the registers: the second pass).
+    shapes = [(37, b) for b in (512, 130, 2, 1024, 4096)] + [(37, 1023), (wrap_rows(torch), 512)]
     for bits in (8, 4):
         s = 15 if bits == 8 else 5
         ns = s + 2
         lv = uniform_levels(s, dev)
-        buckets = (512, 130) + ((1023,) if bits == 8 else ())
-        for bucket in buckets:
+        for nb, bucket in shapes:
+            if bits == 4 and bucket % 2:
+                continue
             for q_is_inf in (True, False):
-                tag = f"bits={bits} bucket={bucket} q={'inf' if q_is_inf else 2}"
+                tag = f"bits={bits} rows={nb} bucket={bucket} q={'inf' if q_is_inf else 2}"
                 x = torch.randn((nb, bucket), generator=gen, device=dev) * 3
                 x[zero_rows] = 0.0
+                x[nan_row, bucket // 2] = float("nan")
                 r = torch.rand((nb, bucket), generator=gen, device=dev)
                 pk, nk = quantize_blocks(x, r, lv, num_symbols=ns, q_is_inf=q_is_inf,
                                          bits=bits)
@@ -213,7 +258,8 @@ def kernel_parity(torch) -> dict:
                 cases += 2
                 for K in (1, 2, 8):
                     ktag = f"{tag} K={K}"
-                    P, N = _rand_payload(torch, gen, K, nb, bucket, s, bits, zero_rows, dev)
+                    P, N = _rand_payload(torch, gen, K, nb, bucket, s, bits, zero_rows, dev,
+                                         nan_row)
                     mk = dequant_reduce_blocks(P, N, lv, num_symbols=ns, num_workers=K,
                                                bits=bits)
                     mp = ref.dequant_reduce_blocks_plain(P, N, lv, bits=bits)
@@ -237,6 +283,34 @@ def kernel_parity(torch) -> dict:
                                 ref.dequantize_blocks_plain(ok_, onk, lv, bits=bits),
                                 ref.dequantize_blocks_plain(op_, onp, lv, bits=bits)))
                     cases += 2
+    # other sorted tables: exponential levels, where s = 15 and 30 put two
+    # levels in one of the 256 cells of [0, 1] (kernels 1 and 2 then take
+    # the binary search) and s = 5 does not
+    nb = 37
+    for s, bits in ((15, 8), (30, 8), (5, 4)):
+        lv = exponential_levels(s, dev)
+        kw = dict(num_symbols=s + 2, bits=bits)
+        for q_is_inf in (True, False):
+            tag = f"exponential s={s} bits={bits} q={'inf' if q_is_inf else 2}"
+            x = torch.randn((nb, 512), generator=gen, device=dev) * torch.exp2(
+                torch.randint(-24, 1, (nb, 512), generator=gen, device=dev).float())
+            r = torch.rand((nb, 512), generator=gen, device=dev)
+            pk, nk = quantize_blocks(x, r, lv, q_is_inf=q_is_inf, **kw)
+            pp, npl = ref.quantize_blocks_plain(x, r, lv, q_is_inf=q_is_inf, **kw)
+            torch.cuda.synchronize()
+            _check_indices(torch, f"quantize {tag}", pk, pp, bits, q_is_inf, nk, npl)
+            _close(torch, f"quantize norms {tag}", nk, npl)
+            for K in (1, 2):
+                P, N = _rand_payload(torch, gen, K, nb, 512, s, bits, zero_rows, dev)
+                ok_, onk = dequant_reduce_requantize_blocks(P, N, lv, r, num_workers=K,
+                                                            q_is_inf=q_is_inf, **kw)
+                op_, onp = ref.dequant_reduce_requantize_blocks_plain(P, N, lv, r,
+                                                                      q_is_inf=q_is_inf, **kw)
+                torch.cuda.synchronize()
+                _check_indices(torch, f"requantize {tag} K={K}", ok_, op_, bits, q_is_inf, onk,
+                               onp)
+                _close(torch, f"requantize norms {tag} K={K}", onk, onp)
+            cases += 3
     # non-finite rows: a NaN / inf coordinate must reach the norm (and so
     # every dequantized value of its row) as in the plain version
     for q_is_inf in (True, False):
@@ -301,24 +375,28 @@ def prng_parity(torch, gen, errs) -> int:
     if not torch.equal(philox_words(ctr.to(dev), key.to(dev)).cpu(), philox_words(ctr, key)):
         fail("Philox4x32-10 on the card differs from the plain version on random counters")
     cases = 2
-    nb, zero_rows, seed = 37, [0, 17], PRNG_SEED
+    zero_rows, nan_row, seed = [0, 17], 5, PRNG_SEED
 
     def same(name, got, want):
         torch.cuda.synchronize()
         for g, w in zip(got, want):
-            if not torch.equal(g, w):
+            if not _same(torch, g, w):
                 fail(f"{name}: differs from the host-noise kernel fed the same Philox draw")
 
+    shapes = [(37, b) for b in (512, 130, 2, 1024, 4096)] + [(37, 1023), (wrap_rows(torch), 130)]
     for bits in (8, 4):
         s = 15 if bits == 8 else 5
         lv = uniform_levels(s, dev)
-        for bucket in (512, 130) + ((1023,) if bits == 8 else ()):
+        for nb, bucket in shapes:
+            if bits == 4 and bucket % 2:
+                continue
             r = ref.philox_uniform(seed, 0, nb, bucket, dev)
             for q_is_inf in (True, False):
-                tag = f"bits={bits} bucket={bucket} q={'inf' if q_is_inf else 2}"
+                tag = f"bits={bits} rows={nb} bucket={bucket} q={'inf' if q_is_inf else 2}"
                 kw = dict(num_symbols=s + 2, q_is_inf=q_is_inf, bits=bits)
                 x = torch.randn((nb, bucket), generator=gen, device=dev) * 3
                 x[zero_rows] = 0.0
+                x[nan_row, bucket // 2] = float("nan")
                 pk, nk = quantize_blocks(x, None, lv, seed=seed, **kw)
                 same(f"quantize/prng {tag}", (pk, nk), quantize_blocks(x, r, lv, **kw))
                 pp, npl = ref.quantize_blocks_plain(x.cpu(), None, lv.cpu(), seed=seed, **kw)
@@ -333,7 +411,8 @@ def prng_parity(torch, gen, errs) -> int:
                 cases += 1
                 for K in (1, 2, 8):
                     ktag = f"{tag} K={K}"
-                    P, N = _rand_payload(torch, gen, K, nb, bucket, s, bits, zero_rows, dev)
+                    P, N = _rand_payload(torch, gen, K, nb, bucket, s, bits, zero_rows, dev,
+                                         nan_row)
                     qk, mk = dequant_reduce_requantize_blocks(P, N, lv, None, num_workers=K,
                                                               seed=seed, **kw)
                     same(f"requantize/prng {ktag}", (qk, mk), dequant_reduce_requantize_blocks(
@@ -351,6 +430,7 @@ def prng_parity(torch, gen, errs) -> int:
                                                             bits=bits),
                                 ref.dequantize_blocks_plain(qp, mp, lv.cpu(), bits=bits)))
                     cases += 1
+    nb = 37
     all_tables = [uniform_levels(15, dev), uniform_levels(5, dev)]
     for T in (1, 2):
         tables, ns = stack_level_tables(all_tables[:T])
@@ -422,6 +502,48 @@ def philox_int_ops(torch) -> float:
         if "quantize_kernel" in f and "Li4ELb0E" in f:  # VEC = 4, int8
             log(f"  SASS {f}: {sum(counts[f].values())} instructions")
     return n_int / 4 + 1
+
+
+def implied_occupancy(regs: int, smem: int, threads: int = ROW_KERNEL_THREADS) -> tuple:
+    """(blocks, warps) resident on one SM for a kernel of ``regs`` registers
+    a thread and ``smem`` bytes of static shared memory a block."""
+    warps = threads // 32
+    per_warp = -(-regs * 32 // 256) * 256
+    by_regs = 4 * (SM_REGS // 4 // per_warp) // warps
+    blocks = min(SM_BLOCKS, SM_WARPS // warps, by_regs, SM_SMEM // (smem + 1024))
+    return blocks, blocks * warps
+
+
+def row_kernel_resources(build_log: str) -> None:
+    """Kernels 1 and 2, every instantiation: registers, shared memory and
+    spills from the ``-Xptxas=-v`` report, and the occupancy they imply at
+    256 threads a block (the grid the launch sizes from the same numbers)."""
+    import re
+
+    found, name = 0, None
+    spills = (0, 0)
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = re.search(r"\d(quantize_kernel|dequant_reduce_requantize_kernel)"
+                             r"ILi(\d)ELb(\d)ENS_\d+(\w+?Noise)E", m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m and name:
+            regs, smem = int(m.group(1)), int(m.group(2))
+            blocks, warps = implied_occupancy(regs, smem)
+            kernel, vec, pack4, noise = name.groups()
+            log(f"  {kernel}<VEC={vec}, {'int4' if pack4 == '1' else 'int8'}, {noise}>: "
+                f"{regs} registers, {smem} B shared, spills {spills[0]} B stored / "
+                f"{spills[1]} B loaded -> {blocks} blocks x 8 warps = {warps} of "
+                f"{SM_WARPS} warps per SM ({100 * warps / SM_WARPS:.1f} % occupancy)")
+            found += 1
+            name = None
+    if found != 20:
+        fail(f"the ptxas report lists {found} instantiations of kernels 1 and 2, not 20")
 
 
 def _check_segment(torch, name, got, want, q_is_inf):
@@ -1041,6 +1163,8 @@ def main() -> None:
     for line in cuda.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
+    log("  kernels 1 and 2 (one warp per row):")
+    row_kernel_resources(cuda.build_log())
     int_ops = philox_int_ops(torch)
     log(f"  device draw: {int_ops} integer operations per coordinate")
 

@@ -24,18 +24,52 @@
 // function of (seed, row, col) only, equal to the plain version
 // repro_torch/kernels/ref.py::philox_uniform whatever the block shape.
 // Dropping the buffer takes 4 B per coordinate off each kernel's traffic
-// and adds ~25 integer operations per coordinate (10 Philox rounds per
-// four draws), so the device-PRNG variants of kernels 1 and 2 may be bound
-// by integer issue rather than by bytes.
+// and adds ~12 integer operations per coordinate (10 Philox rounds per
+// four draws).
 //
-// Design (same for all five): one thread block per bucket row, the level
-// table (s + 2 <= 128 floats; kernel 5: the stacked [T, S_max] tables)
-// staged in shared memory, a block reduction
-// for the row norm, 16-byte loads and stores when the bucket width allows
-// (VEC = 4 coordinates per thread step), and the ragged row edge handled
-// here — no padding of rows to a tile multiple.  All four are bound by
-// device-memory traffic on the H100 (a few flops per byte moved), so the
-// design reads each input once from HBM and writes each output once.
+// What bounds them on the H100.  Kernels 3, 4 and 5 by device-memory
+// bytes (a few flops per byte moved).  Kernels 1 and 2 move few bytes per
+// coordinate for what they compute (two IEEE divisions, the bracket, the
+// rounding and, for kernel 2, the dequantized K-mean: ~60-80 issued
+// instructions per coordinate), so instruction issue bounds them as much
+// as bytes: kernel 1 with host noise sits near its byte bound, kernel 2
+// and the device-draw variants (+~15 issue slots per coordinate for
+// Philox, whose multiplies run at half rate) are bound by issue.
+//
+// Kernels 1 and 2 (quantize; dequant∘mean∘requantize): one warp per bucket
+// row, kWarpRows rows to a block, each warp striding over the rows of a
+// grid sized to fill every SM (row_grid).  A lane holds kLaneCols = 8
+// coordinates in registers, a 256-wide chunk per warp (two 16-byte groups
+// a lane when the bucket is a multiple of 4, the warp's lanes on
+// neighbouring groups so that each access of the warp is one contiguous
+// span); that keeps a thread near 64 registers, 32 warps an SM, enough to
+// hide each row's load latency behind the other warps' arithmetic (16
+// coordinates a lane took ~100 registers and ran slower).  The row norm is
+// a warp-shuffle reduction: no block barrier once the level table is
+// staged.  Kernel 2 computes the K-mean straight into those registers; the
+// reduced row never leaves them.  A row wider than one chunk (the main
+// path's 512 is two) keeps its first chunk in registers and takes a second
+// pass over the rest: kernel 1 re-reads x (from L1/L2), kernel 2
+// recomputes the K-mean from the payload (the same arithmetic, so the same
+// bits).  The host noise is loaded together with the row (kernel 2: right
+// after worker 0's payload, before anything waits on it); the device draw
+// is computed at that point too, before the norm, under the loads'
+// latency.  The bracket tau = #{1 <= j <= s : lv[j] <= u} is one lookup in
+// a 257-cell table of [0, 1] and one compare when no cell holds two levels
+// (every uniform table), else a binary search over the interior levels (4
+// steps for s = 15, where a scan compares 15 times).  Either equals the
+// reference's compare count for a SORTED level table only: every table the
+// port builds is one (uniform_levels, exponential_levels; validate_levels
+// requires strictly increasing levels), and a caller of these kernels must
+// keep to that.  A zero dividend skips __fdiv_rn's slow path (0 / b = +0).
+//
+// Kernels 3, 4 and 5: one thread block per bucket row, the level table
+// (s + 2 <= 128 floats; kernel 5: the stacked [T, S_max] tables) staged in
+// shared memory, a block reduction for kernel 5's row norm, 16-byte loads
+// and stores when the bucket width allows (VEC = 4 coordinates per thread
+// step).  All five handle the ragged row edge here — no padding of rows to
+// a tile multiple — and read each input once from HBM and write each
+// output once.
 //
 // Bit parity with the reference: u = |x| / norm and xi = (u - lo) / (hi -
 // lo) are IEEE round-to-nearest divisions (__fdiv_rn), products and sums
@@ -105,19 +139,6 @@ __device__ __forceinline__ float norm_term(float x, bool is_max) {
 
 __device__ __forceinline__ float finish_norm(float acc, bool is_max) {
   return is_max ? acc : __fsqrt_rn(acc);
-}
-
-// Q of one coordinate: signed level index of x given the row's safe norm.
-__device__ __forceinline__ int quant_one(float x, float r, float safe,
-                                         const float* s_lv, int num_symbols) {
-  float u = __fdiv_rn(fabsf(x), safe);
-  u = fminf(fmaxf(u, 0.0f), 1.0f);
-  int tau = 0;
-  for (int j = 1; j < num_symbols - 1; ++j) tau += (u >= s_lv[j]) ? 1 : 0;
-  const float lo = s_lv[tau], hi = s_lv[tau + 1];
-  const float xi = __fdiv_rn(__fsub_rn(u, lo), __fsub_rn(hi, lo));
-  const int idx = tau + ((r < xi) ? 1 : 0);
-  return x < 0.0f ? -idx : idx;
 }
 
 // DEQ of one signed index.
@@ -242,7 +263,10 @@ __device__ __forceinline__ Noise row_noise(const float* noise, unsigned long lon
 // Write VEC signed indices as int8 (VEC bytes) or packed int4 (VEC/2 bytes).
 template <int VEC, bool PACK4>
 __device__ __forceinline__ void store_indices(int8_t* row_out, int col, const int* q) {
-  if constexpr (PACK4) {
+  if constexpr (PACK4 && VEC == 4) {  // one 2-byte store (col / 2 is even)
+    *reinterpret_cast<uint16_t*>(reinterpret_cast<uint8_t*>(row_out) + col / 2) =
+        static_cast<uint16_t>(pack_pair(q[0], q[1]) | (pack_pair(q[2], q[3]) << 8));
+  } else if constexpr (PACK4) {
     uint8_t* o = reinterpret_cast<uint8_t*>(row_out) + col / 2;
 #pragma unroll
     for (int e = 0; e < VEC; e += 2) o[e / 2] = pack_pair(q[e], q[e + 1]);
@@ -275,37 +299,227 @@ __device__ __forceinline__ void load_indices(const int8_t* row_in, int col, int*
   }
 }
 
-// Quantize one row held at `src` (global or shared memory) against the
-// row's noise source; writes the payload row and the row norm.
-template <int VEC, bool PACK4, class Noise>
-__device__ __forceinline__ void quantize_row(const float* src, const Noise& noise,
-                                             int bucket, bool q_is_inf,
-                                             const float* s_lv, int num_symbols,
-                                             float* s_red, int8_t* out_row,
-                                             float* norm_out) {
-  const int ngroups = bucket / VEC;
-  float part = 0.0f;
-  for (int g = threadIdx.x; g < ngroups; g += blockDim.x) {
-    float v[VEC];
-    load_vec<VEC>(src + g * VEC, v);
+// ---------------------------------------------------------------------------
+// Kernels 1 and 2: one warp per bucket row, the row held in registers
+// ---------------------------------------------------------------------------
+
+constexpr int kWarpRows = 8;  // rows (warps) per block
+constexpr int kRowThreads = 32 * kWarpRows;
+constexpr int kLaneCols = 8;  // coordinates a lane holds: a 256-wide chunk per warp
+constexpr int kCells = 256;    // cells of [0, 1] in the bracket's first lookup
+
+// The level table as kernels 1 and 2 read it, staged once per block.
+struct LevelTables {
+  float lv[kMaxSymbols];        // the levels
+  float2 ends[kMaxSymbols];     // bracket j's ends (lv[j], lv[j + 1])
+  float key[kMaxSymbols];       // interior levels 1 .. s at their index, +inf elsewhere
+  int below[kCells + 1];        // cell c: #interior levels <= c / kCells ...
+  float next[kCells + 1];       // ... and the next interior level (+inf if none)
+};
+
+// Stages the tables; returns true when no open cell (c, c + 1) / kCells
+// holds two levels (every uniform table up to kMaxSymbols), so that one
+// compare after the cell's count finds the bracket.  Both barriers are
+// the kernel's only ones.
+__device__ __forceinline__ bool stage_tables(LevelTables& t, const float* levels,
+                                             int num_symbols) {
+  const int s = num_symbols - 2;
+  for (int j = threadIdx.x; j < kMaxSymbols; j += blockDim.x) {
+    const float lo = j < num_symbols ? levels[j] : 0.0f;
+    t.lv[j] = lo;
+    t.ends[j] = make_float2(lo, j + 1 < num_symbols ? levels[j + 1] : 0.0f);
+    t.key[j] = j >= 1 && j <= s ? lo : __int_as_float(0x7f800000);
+  }
+  __syncthreads();
+  bool coarse = false;
+  for (int c = threadIdx.x; c <= kCells; c += blockDim.x) {
+    const float lo = c * (1.0f / kCells), hi = (c + 1) * (1.0f / kCells);  // exact
+    int le = 0, lt = 0;
+    for (int j = 1; j <= s; ++j) {
+      le += t.key[j] <= lo ? 1 : 0;
+      lt += t.key[j] < hi ? 1 : 0;
+    }
+    t.below[c] = le;
+    t.next[c] = t.key[le + 1];
+    coarse = coarse || lt - le > 1;
+  }
+  return !__syncthreads_or(coarse);
+}
+
+// The binary search's first step: the largest power of two <= s, the
+// interior level count (1 if there is none).  Its steps then reach key
+// 2 * step - 1 <= 127, and t.key is +inf past s.
+__device__ __forceinline__ int first_step(int num_symbols) {
+  int step = 1;
+  while (2 * step <= num_symbols - 2) step *= 2;
+  return step;
+}
+
+// Max (q = inf) or sum (q = 2) over the warp's 32 lanes, the same bits in
+// every lane (the butterfly adds each pair in both orders, and IEEE
+// addition commutes).
+__device__ __forceinline__ float warp_reduce(float v, bool is_max) {
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      const float t = norm_term(v[e], q_is_inf);
-      part = q_is_inf ? nan_max(part, t) : __fadd_rn(part, t);
+  for (int off = 16; off > 0; off >>= 1) {
+    const float o = __shfl_xor_sync(0xffffffffu, v, off);
+    v = is_max ? nan_max(v, o) : __fadd_rn(v, o);
+  }
+  return v;
+}
+
+// Group i (of kLaneCols / VEC) of this lane in chunk c of a row.
+template <int VEC>
+__device__ __forceinline__ int group_of(int c, int i, int lane) {
+  return (c * (kLaneCols / VEC) + i) * 32 + lane;
+}
+
+// This lane's coordinates of chunk c of an f32 row; zero past the row's end.
+template <int VEC>
+__device__ __forceinline__ void load_chunk(const float* row, int c, int ngroups, int lane,
+                                           float* v) {
+#pragma unroll
+  for (int i = 0; i < kLaneCols / VEC; ++i) {
+    const int g = group_of<VEC>(c, i, lane);
+    if (g < ngroups) {
+      load_vec<VEC>(row + g * VEC, v + i * VEC);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) v[i * VEC + e] = 0.0f;
     }
   }
-  const float norm = finish_norm(block_reduce(part, q_is_inf, s_red), q_is_inf);
-  const float safe = norm > 0.0f ? norm : 1.0f;
-  for (int g = threadIdx.x; g < ngroups; g += blockDim.x) {
-    float v[VEC], r[VEC];
-    int q[VEC];
-    load_vec<VEC>(src + g * VEC, v);
-    noise.template get<VEC>(g * VEC, r);
+}
+
+// This lane's draws of chunk c: host-noise loads, or Philox in registers.
+template <int VEC, class Noise>
+__device__ __forceinline__ void draw_chunk(const Noise& noise, int c, int ngroups, int lane,
+                                           float* r) {
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) q[e] = quant_one(v[e], r[e], safe, s_lv, num_symbols);
+  for (int i = 0; i < kLaneCols / VEC; ++i) {
+    const int g = group_of<VEC>(c, i, lane);
+    if (g < ngroups) {
+      noise.template get<VEC>(g * VEC, r + i * VEC);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) r[i * VEC + e] = 0.0f;
+    }
+  }
+}
+
+// This lane's part of the row norm, continued over one more chunk.
+__device__ __forceinline__ float chunk_norm(const float* v, bool is_max, float part) {
+#pragma unroll
+  for (int e = 0; e < kLaneCols; ++e) {
+    const float t = norm_term(v[e], is_max);
+    part = is_max ? nan_max(part, t) : __fadd_rn(part, t);
+  }
+  return part;
+}
+
+// IEEE a / b for b > 0, with a zero dividend kept off __fdiv_rn's slow
+// path (its range check sends 0 / b there): +0 / b is +0, and the
+// division is made of b / b instead.  Exact zeros are common: padding,
+// gradients of unused rows, and every coordinate of kernel 2 that sits on
+// a level (u - lo == 0).
+__device__ __forceinline__ float div_rn(float a, float b) {
+  const float q = __fdiv_rn(a != 0.0f ? a : b, b);
+  return a != 0.0f ? q : 0.0f;
+}
+
+// Q of this lane's share of chunk c (values v, draws r) given the row's safe
+// norm: writes its payload bytes.  The bracket tau = #{1 <= j <= s :
+// lv[j] <= u}: with a fine table, the count up to u's cell plus one
+// compare; else a binary search, all kLaneCols coordinates in step, key by
+// key from the largest step down.  Both equal the compare count for a
+// sorted table.
+template <int VEC, bool PACK4>
+__device__ __forceinline__ void quantize_chunk(const float* v, const float* r, float safe,
+                                               const LevelTables& t, bool fine, int step0,
+                                               int8_t* out_row, int c, int ngroups, int lane) {
+  float u[kLaneCols];
+  int tau[kLaneCols];
+  uint32_t neg = 0;
+#pragma unroll
+  for (int e = 0; e < kLaneCols; ++e) {
+    u[e] = fminf(fmaxf(div_rn(fabsf(v[e]), safe), 0.0f), 1.0f);  // NaN -> 0
+    neg |= (v[e] < 0.0f ? 1u : 0u) << e;
+  }
+  if (fine) {
+#pragma unroll
+    for (int e = 0; e < kLaneCols; ++e) {
+      const int cell = __float2int_rz(__fmul_rn(u[e], float(kCells)));  // u in [0, 1]
+      tau[e] = t.below[cell] + (t.next[cell] <= u[e] ? 1 : 0);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < kLaneCols; ++e) tau[e] = 0;
+    for (int step = step0; step > 0; step >>= 1) {
+#pragma unroll
+      for (int e = 0; e < kLaneCols; ++e) tau[e] += t.key[tau[e] + step] <= u[e] ? step : 0;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kLaneCols / VEC; ++i) {
+    const int g = group_of<VEC>(c, i, lane);
+    if (g >= ngroups) continue;
+    int q[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const int e = i * VEC + j;
+      const float2 ends = t.ends[tau[e]];
+      const float lo = ends.x, hi = ends.y;
+      const float xi = div_rn(__fsub_rn(u[e], lo), __fsub_rn(hi, lo));
+      const int idx = tau[e] + (r[e] < xi ? 1 : 0);
+      q[j] = (neg >> e) & 1u ? -idx : idx;
+    }
     store_indices<VEC, PACK4>(out_row, g * VEC, q);
   }
-  if (threadIdx.x == 0) *norm_out = norm;
+}
+
+// This lane's signed indices of chunk c of one payload row; 0 past its end.
+template <int VEC, bool PACK4>
+__device__ __forceinline__ void load_index_chunk(const int8_t* in_row, int c, int ngroups,
+                                                 int lane, int* q) {
+#pragma unroll
+  for (int i = 0; i < kLaneCols / VEC; ++i) {
+    const int g = group_of<VEC>(c, i, lane);
+    if (g < ngroups) {
+      load_indices<VEC, PACK4>(in_row, g * VEC, q + i * VEC);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) q[i * VEC + e] = 0;
+    }
+  }
+}
+
+// The K-mean of this lane's share of chunk c, straight into registers:
+// acc = sum_k DEQ(payload_k) in worker order, then acc * (1/K) (the
+// arithmetic of mean_group); zero past the row's end.  Worker 0 is peeled
+// so that `issued` (the row's noise loads, or its draws) runs in straight
+// line right after worker 0's loads, before anything waits on them.
+template <int VEC, bool PACK4, class F>
+__device__ __forceinline__ void mean_chunk(const int8_t* idx, const float* norms, int K,
+                                           long long nb, long long row, long long pcols,
+                                           int c, int ngroups, int lane, float inv_k,
+                                           const float* s_lv, float* acc, F&& issued) {
+  int q[kLaneCols];
+  load_index_chunk<VEC, PACK4>(idx + row * pcols, c, ngroups, lane, q);
+  const float norm0 = norms[row];
+  issued();
+#pragma unroll
+  for (int e = 0; e < kLaneCols; ++e) acc[e] = deq_one(q[e], norm0, s_lv);
+  for (int k = 1; k < K; ++k) {
+    const long long r = (long long)k * nb + row;
+    load_index_chunk<VEC, PACK4>(idx + r * pcols, c, ngroups, lane, q);
+    const float norm = norms[r];
+#pragma unroll
+    for (int e = 0; e < kLaneCols; ++e) acc[e] = __fadd_rn(acc[e], deq_one(q[e], norm, s_lv));
+  }
+#pragma unroll
+  for (int i = 0; i < kLaneCols / VEC; ++i) {
+    const bool live = group_of<VEC>(c, i, lane) < ngroups;  // a NaN norm must not leak
+#pragma unroll
+    for (int e = i * VEC; e < (i + 1) * VEC; ++e) acc[e] = live ? __fmul_rn(acc[e], inv_k) : 0.0f;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -313,20 +527,41 @@ __device__ __forceinline__ void quantize_row(const float* src, const Noise& nois
 // ---------------------------------------------------------------------------
 
 template <int VEC, bool PACK4, class Noise>
-__global__ void quantize_kernel(const float* __restrict__ x,
-                                const float* __restrict__ noise, unsigned long long seed,
-                                const float* __restrict__ levels, int num_symbols,
-                                int bucket, bool q_is_inf,
-                                int8_t* __restrict__ out, float* __restrict__ norms) {
-  __shared__ float s_lv[kMaxSymbols];
-  __shared__ float s_red[32];
-  load_levels(s_lv, levels, num_symbols);
-  __syncthreads();
-  const long long row = blockIdx.x;
+__global__ void __launch_bounds__(kRowThreads)
+quantize_kernel(const float* __restrict__ x, const float* __restrict__ noise,
+                unsigned long long seed, const float* __restrict__ levels, int num_symbols,
+                long long nb, int bucket, bool q_is_inf, int8_t* __restrict__ out,
+                float* __restrict__ norms) {
+  __shared__ LevelTables t;
+  const bool fine = stage_tables(t, levels, num_symbols);
+  const int lane = threadIdx.x & 31, step0 = first_step(num_symbols);
+  const int ngroups = bucket / VEC, per_chunk = 32 * (kLaneCols / VEC);
+  const int nchunks = (ngroups + per_chunk - 1) / per_chunk;
   const long long pcols = PACK4 ? bucket / 2 : bucket;
-  quantize_row<VEC, PACK4>(x + row * bucket, row_noise<Noise>(noise, seed, row, bucket),
-                           bucket, q_is_inf, s_lv, num_symbols, s_red, out + row * pcols,
-                           norms + row);
+  for (long long row = (long long)blockIdx.x * kWarpRows + (threadIdx.x >> 5); row < nb;
+       row += (long long)gridDim.x * kWarpRows) {
+    const float* x_row = x + row * bucket;
+    const Noise src = row_noise<Noise>(noise, seed, row, bucket);
+    float v[kLaneCols], r[kLaneCols];
+    load_chunk<VEC>(x_row, 0, ngroups, lane, v);
+    draw_chunk<VEC>(src, 0, ngroups, lane, r);  // with x's loads in flight
+    float part = chunk_norm(v, q_is_inf, 0.0f);
+    for (int c = 1; c < nchunks; ++c) {  // a row wider than the registers: its norm
+      float w[kLaneCols];
+      load_chunk<VEC>(x_row, c, ngroups, lane, w);
+      part = chunk_norm(w, q_is_inf, part);
+    }
+    const float norm = finish_norm(warp_reduce(part, q_is_inf), q_is_inf);
+    const float safe = norm > 0.0f ? norm : 1.0f;
+    int8_t* out_row = out + row * pcols;
+    quantize_chunk<VEC, PACK4>(v, r, safe, t, fine, step0, out_row, 0, ngroups, lane);
+    for (int c = 1; c < nchunks; ++c) {  // ... and its second pass, x from L1/L2
+      load_chunk<VEC>(x_row, c, ngroups, lane, v);
+      draw_chunk<VEC>(src, c, ngroups, lane, r);
+      quantize_chunk<VEC, PACK4>(v, r, safe, t, fine, step0, out_row, c, ngroups, lane);
+    }
+    if (lane == 0) norms[row] = norm;
+  }
 }
 
 template <int VEC, bool PACK4>
@@ -391,31 +626,45 @@ __global__ void dequant_reduce_kernel(const int8_t* __restrict__ idx,
   }
 }
 
-// The reduced row lives only in shared memory (dynamic, bucket floats).
+// The reduced row lives only in registers (a row wider than 512: its first
+// chunk; the rest is recomputed from the payload in the second pass).
 template <int VEC, bool PACK4, class Noise>
-__global__ void dequant_reduce_requantize_kernel(
+__global__ void __launch_bounds__(kRowThreads) dequant_reduce_requantize_kernel(
     const int8_t* __restrict__ idx, const float* __restrict__ norms,
     const float* __restrict__ noise, unsigned long long seed,
     const float* __restrict__ levels,
     int num_symbols, int K, long long nb, int bucket, bool q_is_inf, float inv_k,
     int8_t* __restrict__ out, float* __restrict__ onorms) {
-  extern __shared__ float4 s_dyn[];
-  float* s_row = reinterpret_cast<float*>(s_dyn);
-  __shared__ float s_lv[kMaxSymbols];
-  __shared__ float s_red[32];
-  load_levels(s_lv, levels, num_symbols);
-  __syncthreads();
-  const long long row = blockIdx.x;
-  for (int g = threadIdx.x; g < bucket / VEC; g += blockDim.x) {
-    float acc[VEC];
-    mean_group<VEC, PACK4>(idx, norms, K, nb, row, bucket, g * VEC, inv_k, s_lv, acc);
-    store_vec<VEC>(s_row + g * VEC, acc);
-  }
-  __syncthreads();
+  __shared__ LevelTables t;
+  const bool fine = stage_tables(t, levels, num_symbols);
+  const int lane = threadIdx.x & 31, step0 = first_step(num_symbols);
+  const int ngroups = bucket / VEC, per_chunk = 32 * (kLaneCols / VEC);
+  const int nchunks = (ngroups + per_chunk - 1) / per_chunk;
   const long long pcols = PACK4 ? bucket / 2 : bucket;
-  quantize_row<VEC, PACK4>(s_row, row_noise<Noise>(noise, seed, row, bucket), bucket,
-                           q_is_inf, s_lv, num_symbols, s_red, out + row * pcols,
-                           onorms + row);
+  for (long long row = (long long)blockIdx.x * kWarpRows + (threadIdx.x >> 5); row < nb;
+       row += (long long)gridDim.x * kWarpRows) {
+    const Noise src = row_noise<Noise>(noise, seed, row, bucket);
+    float v[kLaneCols], r[kLaneCols];
+    mean_chunk<VEC, PACK4>(idx, norms, K, nb, row, pcols, 0, ngroups, lane, inv_k, t.lv, v,
+                           [&] { draw_chunk<VEC>(src, 0, ngroups, lane, r); });
+    float part = chunk_norm(v, q_is_inf, 0.0f);
+    for (int c = 1; c < nchunks; ++c) {  // a row wider than the registers: its norm
+      float w[kLaneCols];
+      mean_chunk<VEC, PACK4>(idx, norms, K, nb, row, pcols, c, ngroups, lane, inv_k, t.lv, w,
+                             [] {});
+      part = chunk_norm(w, q_is_inf, part);
+    }
+    const float norm = finish_norm(warp_reduce(part, q_is_inf), q_is_inf);
+    const float safe = norm > 0.0f ? norm : 1.0f;
+    int8_t* out_row = out + row * pcols;
+    quantize_chunk<VEC, PACK4>(v, r, safe, t, fine, step0, out_row, 0, ngroups, lane);
+    for (int c = 1; c < nchunks; ++c) {  // ... and its second pass: the same K-mean again
+      mean_chunk<VEC, PACK4>(idx, norms, K, nb, row, pcols, c, ngroups, lane, inv_k, t.lv, v,
+                             [&] { draw_chunk<VEC>(src, c, ngroups, lane, r); });
+      quantize_chunk<VEC, PACK4>(v, r, safe, t, fine, step0, out_row, c, ngroups, lane);
+    }
+    if (lane == 0) onorms[row] = norm;
+  }
 }
 
 
@@ -518,6 +767,23 @@ int pick_vec(int bucket, bool pack4) {
   return pack4 ? 0 : 1;
 }
 
+// The grid of kernels 1 and 2: enough blocks of kRowThreads to fill every
+// SM of the device at the kernel's occupancy, and no more than the rows
+// need; each warp then strides over the rows.
+template <class Kernel>
+cudaError_t row_grid(Kernel kernel, int device, long long nb, unsigned* blocks) {
+  int sms = 0, per_sm = 0;
+  if (cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device))
+    return e;
+  if (cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                                    kRowThreads, 0))
+    return e;
+  const long long need = (nb + kWarpRows - 1) / kWarpRows;
+  const long long full = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  *blocks = static_cast<unsigned>(need < full ? need : full);
+  return cudaSuccess;
+}
+
 bool bad_args(int num_symbols, long long nb, int bucket, int vec) {
   return num_symbols < 2 || num_symbols > kMaxSymbols || nb < 0 || nb > 0x7fffffffLL ||
          bucket <= 0 || vec == 0;
@@ -571,14 +837,20 @@ int qx_quantize(const float* x, const float* noise, unsigned long long seed,
   if (nb == 0) return cudaSuccess;
   if (cudaError_t e = cudaSetDevice(device)) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = threads_for(bucket, vec);
+  cudaError_t err = cudaSuccess;
   dispatch(vec, pack4, [&](auto v, auto p) {
     with_noise(device_prng != 0, [&](auto n) {
-      quantize_kernel<decltype(v)::value, decltype(p)::value, typename decltype(n)::type>
-          <<<(unsigned)nb, threads, 0, s>>>(x, noise, seed, levels, num_symbols, bucket,
-                                            q_is_inf != 0, out, norms);
+      constexpr int V = decltype(v)::value;
+      constexpr bool P = decltype(p)::value;
+      using N = typename decltype(n)::type;
+      unsigned blocks = 0;
+      err = row_grid(quantize_kernel<V, P, N>, device, nb, &blocks);
+      if (err == cudaSuccess)
+        quantize_kernel<V, P, N><<<blocks, kRowThreads, 0, s>>>(
+            x, noise, seed, levels, num_symbols, nb, bucket, q_is_inf != 0, out, norms);
     });
   });
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -625,24 +897,26 @@ int qx_dequant_reduce_requantize(const int8_t* idx, const float* norms,
                                  float* onorms, int device, void* stream) {
   const bool pack4 = bits == 4;
   const int vec = pick_vec(bucket, pack4);
-  // the reduced row is staged in dynamic shared memory (48 KB default cap)
-  const size_t smem = sizeof(float) * (size_t)bucket;
-  if (bad_args(num_symbols, nb, bucket, vec) || K < 1 || smem > 48 * 1024 ||
-      bad_noise(noise, device_prng))
+  if (bad_args(num_symbols, nb, bucket, vec) || K < 1 || bad_noise(noise, device_prng))
     return cudaErrorInvalidValue;
   if (nb == 0) return cudaSuccess;
   if (cudaError_t e = cudaSetDevice(device)) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = threads_for(bucket, vec);
+  cudaError_t err = cudaSuccess;
   dispatch(vec, pack4, [&](auto v, auto p) {
     with_noise(device_prng != 0, [&](auto n) {
-      dequant_reduce_requantize_kernel<decltype(v)::value, decltype(p)::value,
-                                       typename decltype(n)::type>
-          <<<(unsigned)nb, threads, smem, s>>>(idx, norms, noise, seed, levels, num_symbols,
-                                               K, nb, bucket, q_is_inf != 0, inv_k, out,
-                                               onorms);
+      constexpr int V = decltype(v)::value;
+      constexpr bool P = decltype(p)::value;
+      using N = typename decltype(n)::type;
+      unsigned blocks = 0;
+      err = row_grid(dequant_reduce_requantize_kernel<V, P, N>, device, nb, &blocks);
+      if (err == cudaSuccess)
+        dequant_reduce_requantize_kernel<V, P, N><<<blocks, kRowThreads, 0, s>>>(
+            idx, norms, noise, seed, levels, num_symbols, K, nb, bucket, q_is_inf != 0, inv_k,
+            out, onorms);
     });
   });
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 

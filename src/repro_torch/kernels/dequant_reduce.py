@@ -6,10 +6,13 @@ CUDA for Hopper.
 two-phase middle step: unpack the K payloads received by the all_to_all,
 dequantize, take ``acc * (1/K)`` summed in worker order, and quantize that
 mean again against fresh noise.  The reduced row never reaches device
-memory: it is staged in shared memory (``bucket`` floats) and the
-quantize pass reads it from there.  Bound on the H100: device-memory
-traffic — K payload rows and norms plus the noise row read, one payload
-row and norm written.
+memory: one warp per row computes the K-mean straight into registers (256
+coordinates of it; a wider row recomputes the rest from the payload for
+its second pass), takes the norm by warp shuffles and re-quantizes from
+there, with the bracket found as kernel 1 finds it (``levels`` sorted
+ascending).  Bound on the H100: instruction issue as much as bytes — K
+payload rows and norms plus the noise row read, one payload row and norm
+written, against ~80 instructions per coordinate.
 
 ``dequant_reduce_blocks`` (kernel 4) replaces
 ``repro/kernels/dequant_reduce.py::dequant_reduce_blocks``, the gather
@@ -17,15 +20,16 @@ consumer: ``mean_k DEQ(payload_k)``, with only the f32 mean written.
 Bound on the H100: device-memory traffic — K payload rows read, one f32
 row written; the K dequantized rows stay in registers.
 
-Both give each bucket row one thread block with the level table in shared
-memory (``csrc/exchange_kernels.cu``).  Kernel 2 has a device-PRNG
-variant (``seed=`` in place of ``noise``; TPU kernel B5 at its call site
-``repro/kernels/dequant_reduce.py:124``): the re-quantize draw is made
-with Philox4x32-10 in registers, so of kernel 2's traffic only the K
-payloads in and the payload out remain (2.2 GB instead of 6.6 GB at the
-tinyllama-1.1b buffer, K = 1), and ~25 integer operations per
-coordinate likely bound it instead.  CPU tensors go to the plain
-versions; CUDA tensors launch the kernel or raise.
+Both keep the level table in shared memory (``csrc/exchange_kernels.cu``;
+kernel 4 gives each bucket row one thread block).  Kernel 2 has a
+device-PRNG variant (``seed=`` in place of ``noise``; TPU kernel B5 at its
+call site ``repro/kernels/dequant_reduce.py:124``): the re-quantize draw
+is made with Philox4x32-10 in registers while the payload loads are in
+flight, so of kernel 2's traffic only the K payloads in and the payload
+out remain (2.2 GB instead of 6.6 GB at the tinyllama-1.1b buffer,
+K = 1), and ~12 integer operations per coordinate bound it instead.  CPU
+tensors go to the plain versions; CUDA tensors launch the kernel or
+raise.
 """
 
 from __future__ import annotations

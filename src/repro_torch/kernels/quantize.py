@@ -3,27 +3,31 @@ CUDA for Hopper.
 
 Replaces ``repro/kernels/quantize.py::quantize_blocks`` (Pallas body
 ``_quantize_kernel``): per bucket row, the L^inf or L^2 norm,
-``u = clip(|x| / norm, 0, 1)``, the level bracket by compare-accumulate
-over the s interior levels, stochastic rounding ``r < xi`` against the
-host noise, and the signed index as int8 or packed two per byte in the
-kernel (the buffer it writes is the wire payload).
+``u = clip(|x| / norm, 0, 1)``, the level bracket
+``tau = #{1 <= j <= s : levels[j] <= u}``, stochastic rounding
+``r < xi`` against the host noise, and the signed index as int8 or packed
+two per byte in the kernel (the buffer it writes is the wire payload).
 
 Bound on the H100: device-memory traffic.  It reads x and the noise (4 B
 each per coordinate) and writes 1 B (int8) or 0.5 B (int4) per coordinate
 plus 4 B per row; at the tinyllama-1.1b exchange buffer (~1.1e9
 coordinates) that is ~9.9 GB, ~3 ms at 3.35 TB/s.  The design
 (``csrc/exchange_kernels.cu::quantize_kernel``) gives each bucket row one
-thread block, reads x and the noise once with 16-byte loads (the norm pass
-re-reads the row from L1/L2, not HBM), keeps the level table in shared
-memory and writes the payload once.
+warp, which holds 256 coordinates of it in registers (16-byte loads of x
+and the noise issued together), takes the norm by warp shuffles and
+re-reads the rest of a wider row from L1/L2 for its second pass.  The
+bracket comes from a cell table of [0, 1] and one compare, or a binary
+search over the interior levels: both need ``levels`` sorted ascending,
+as every table the port builds is.
 
 Device-PRNG variant (``seed=`` in place of ``noise``; TPU kernel B5 at
 its call site ``repro/kernels/quantize.py:63``): the kernel draws each
 coordinate's noise with Philox4x32-10 in registers
 (:func:`repro_torch.kernels.ref.philox_uniform` is its plain version), so
 the 4 B per coordinate of noise are neither written by a host draw nor
-read here: ~5.5 GB (int8) at the tinyllama-1.1b buffer, against ~25
-integer operations per coordinate for the draw.
+read here: ~5.5 GB (int8) at the tinyllama-1.1b buffer, against ~12
+integer operations per coordinate for the draw, which the kernel computes
+while the row's loads are in flight.
 
 CPU tensors go to the plain version :func:`quantize_blocks_plain` (same
 arithmetic, bit-identical); CUDA tensors launch the kernel or raise.

@@ -5,7 +5,8 @@ These tests need CUDA GPUs and nvcc; where there are none they skip with a
 reason (``pytest -m gpu tests/test_torch_cuda.py`` runs them on the card;
 ``python3 chip_smoke.py`` runs the same comparison and more).  The
 extension is built lazily, inside the tests.  Indices and packed bytes
-must be equal (q = inf), f32 outputs within rtol 1e-6.
+must be equal (q = inf), f32 outputs within rtol 1e-6, NaN in the same
+places.
 """
 
 import pytest
@@ -31,37 +32,101 @@ def dev():
     return torch.device("cuda")
 
 
+def same(a, b):
+    """Bit-equal, NaN equal to NaN in the same places."""
+    if a.is_floating_point():
+        return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
+    return torch.equal(a, b)
+
+
+def close(a, b):
+    """NaN in the same places, the rest within rtol 1e-6."""
+    return torch.equal(a.isnan(), b.isnan()) and torch.allclose(
+        a.nan_to_num(), b.nan_to_num(), rtol=1e-6, atol=0)
+
+
+def rows_for(rows, dev):
+    """37, or ``"wrap"``: more rows than warps the card holds at once (one
+    row per warp in kernels 1 and 2, 64 warps per SM), so their grid-stride
+    loop wraps, and not a multiple of a block's 8 rows."""
+    if rows != "wrap":
+        return rows
+    return torch.cuda.get_device_properties(dev).multi_processor_count * 64 + 37
+
+
+# buckets 2 (VEC 2), 512 (one warp's registers), 1024 (QuantConfig's
+# default), 4096 (wider than the registers: the second pass)
+SHAPES = [(37, 512), (37, 2), (37, 1024), (37, 4096), ("wrap", 512)]
+
+
+@pytest.mark.parametrize("rows,bucket", SHAPES)
 @pytest.mark.parametrize("K", [1, 2, 8])
 @pytest.mark.parametrize("bits", [8, 4])
-def test_kernels_match_plain_versions(dev, bits, K):
+def test_kernels_match_plain_versions(dev, bits, K, rows, bucket):
+    """Kernels 1-4 against their plain versions with an all-zero row and a
+    NaN row (kernels 2-4 get the NaN row's norm from every worker)."""
     s = 15 if bits == 8 else 5
     lv = uniform_levels(s, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(bits * 10 + K)
-    nb, bucket = 37, 512
+    nb = rows_for(rows, dev)
     x = torch.randn((nb, bucket), generator=gen, device=dev)
     x[5] = 0
+    x[6, bucket // 2] = float("nan")
     r = torch.rand((nb, bucket), generator=gen, device=dev)
     before = cuda.launch_counts()
     pk, nk = quantize_blocks(x, r, lv, num_symbols=s + 2, q_is_inf=True, bits=bits)
     pp, np_ = ref.quantize_blocks_plain(x, r, lv, num_symbols=s + 2, q_is_inf=True, bits=bits)
-    assert torch.equal(pk, pp) and torch.equal(nk, np_)
-    assert torch.allclose(dequantize_blocks(pk, nk, lv, num_symbols=s + 2, bits=bits),
-                          ref.dequantize_blocks_plain(pk, nk, lv, bits=bits), rtol=1e-6, atol=0)
+    assert torch.equal(pk, pp) and same(nk, np_) and bool(nk[6].isnan())
+    assert close(dequantize_blocks(pk, nk, lv, num_symbols=s + 2, bits=bits),
+                 ref.dequantize_blocks_plain(pk, nk, lv, bits=bits))
     P = torch.stack([pk] * K)
     N = torch.stack([nk] * K)
-    assert torch.allclose(
-        dequant_reduce_blocks(P, N, lv, num_symbols=s + 2, num_workers=K, bits=bits),
-        ref.dequant_reduce_blocks_plain(P, N, lv, bits=bits), rtol=1e-6, atol=0)
+    assert close(dequant_reduce_blocks(P, N, lv, num_symbols=s + 2, num_workers=K, bits=bits),
+                 ref.dequant_reduce_blocks_plain(P, N, lv, bits=bits))
     ok, onk = dequant_reduce_requantize_blocks(P, N, lv, r, num_symbols=s + 2, num_workers=K,
                                                q_is_inf=True, bits=bits)
     op, onp = ref.dequant_reduce_requantize_blocks_plain(P, N, lv, r, num_symbols=s + 2,
                                                          q_is_inf=True, bits=bits)
-    assert torch.equal(ok, op) and torch.equal(onk, onp)
+    assert torch.equal(ok, op) and same(onk, onp) and bool(onk[6].isnan())
     after = cuda.launch_counts()
     assert all(after[k] - before[k] == 1 for k in ("quantize_blocks", "dequantize_blocks",
                                                    "dequant_reduce_blocks",
                                                    "dequant_reduce_requantize_blocks"))
+
+
+@pytest.mark.parametrize("q_is_inf", [True, False])
+@pytest.mark.parametrize("s,bits", [(15, 8), (30, 8), (5, 4)])
+def test_quantize_kernels_with_exponential_levels(dev, s, bits, q_is_inf):
+    """Kernels 1 and 2 on exponential level tables against their plain
+    versions: s = 15 and 30 put two levels in one cell of [0, 1], so the
+    bracket comes from the binary search; s = 5 from the cell table."""
+    from repro_torch.core.quantization import exponential_levels
+
+    lv = exponential_levels(s, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(s + bits + q_is_inf)
+    nb, bucket = 37, 512
+    x = torch.randn((nb, bucket), generator=gen, device=dev) * torch.exp2(
+        torch.randint(-24, 1, (nb, bucket), generator=gen, device=dev).float())
+    x[5] = 0
+    r = torch.rand((nb, bucket), generator=gen, device=dev)
+    kw = dict(num_symbols=s + 2, q_is_inf=q_is_inf, bits=bits)
+
+    def held(got, want):
+        """q = inf: bytes and norms equal; q = 2 (the L2 sum's order
+        differs): norms within rtol 1e-6, indices equal where they agree."""
+        (pg, ng), (pw, nw) = got, want
+        assert torch.allclose(ng, nw, rtol=1e-6, atol=0)
+        rows = ng == nw
+        assert bool(rows.all()) or not q_is_inf
+        assert torch.equal(ref.unpack_payload(pg, bits)[rows], ref.unpack_payload(pw, bits)[rows])
+
+    pp, np_ = ref.quantize_blocks_plain(x, r, lv, **kw)
+    held(quantize_blocks(x, r, lv, **kw), (pp, np_))
+    P, N = torch.stack([pp, pp.flip(0)]), torch.stack([np_, np_.flip(0)])
+    held(dequant_reduce_requantize_blocks(P, N, lv, r, num_workers=2, **kw),
+         ref.dequant_reduce_requantize_blocks_plain(P, N, lv, r, **kw))
 
 
 @pytest.mark.parametrize("stochastic", [True, False])
@@ -119,50 +184,57 @@ def test_philox_known_answer_vectors_on_the_card(dev):
 
 
 @pytest.mark.parametrize("q_is_inf", [True, False])
-@pytest.mark.parametrize("bits,bucket", [(8, 512), (4, 512), (8, 130), (4, 130), (8, 1023)])
-def test_device_prng_kernels_match_host_noise_kernels(dev, bits, bucket, q_is_inf):
-    """Kernels 1, 2 and 5 drawing their own noise equal the same kernels fed
-    philox_uniform's draw of the seed, materialized on the card: payload
-    bytes, norms and estimates bit for bit (the same arithmetic on the same
-    noise); and, at q = inf, the plain versions on the CPU."""
+@pytest.mark.parametrize("bits,bucket,rows", [
+    (8, 512, 37), (4, 512, 37), (8, 130, 37), (4, 130, 37), (8, 1023, 37),
+    (8, 2, 37), (4, 2, 37), (8, 1024, 37), (4, 1024, 37), (8, 4096, 37), (4, 4096, 37),
+    (8, 130, "wrap"), (4, 130, "wrap")])
+def test_device_prng_kernels_match_host_noise_kernels(dev, bits, bucket, rows, q_is_inf):
+    """Kernels 1, 2 (K = 1, 2, 8) and 5 drawing their own noise equal the
+    same kernels fed philox_uniform's draw of the seed, materialized on the
+    card: payload bytes, norms and estimates bit for bit (the same
+    arithmetic on the same noise), with an all-zero row and a NaN row; and,
+    at q = inf, the plain versions on the CPU."""
     from repro_torch.core.exchange_plan import stack_level_tables
 
     s = 15 if bits == 8 else 5
     lv = uniform_levels(s, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(bits + bucket)
-    nb, seed = 37, 0x0123456789ABCDEF
+    nb, seed = rows_for(rows, dev), 0x0123456789ABCDEF
     x = torch.randn((nb, bucket), generator=gen, device=dev) * 3
     x[5] = 0
+    x[6, bucket // 2] = float("nan")
     r = ref.philox_uniform(seed, 0, nb, bucket, dev)
     kw = dict(num_symbols=s + 2, q_is_inf=q_is_inf, bits=bits)
     before = cuda.launch_counts()
     pk, nk = quantize_blocks(x, None, lv, seed=seed, **kw)
     ph, nh = quantize_blocks(x, r, lv, **kw)
-    assert torch.equal(pk, ph) and torch.equal(nk, nh)
-    P, N = torch.stack([pk, pk.flip(0)]), torch.stack([nk, nk.flip(0)])
-    qk, mk = dequant_reduce_requantize_blocks(P, N, lv, None, num_workers=2, seed=seed, **kw)
-    qh, mh = dequant_reduce_requantize_blocks(P, N, lv, r, num_workers=2, **kw)
-    assert torch.equal(qk, qh) and torch.equal(mk, mh)
+    assert torch.equal(pk, ph) and same(nk, nh)
+    for K in (1, 2, 8):
+        P = torch.stack([pk.roll(k, 0) for k in range(K)])
+        N = torch.stack([nk.roll(k, 0) for k in range(K)])
+        qk, mk = dequant_reduce_requantize_blocks(P, N, lv, None, num_workers=K, seed=seed, **kw)
+        qh, mh = dequant_reduce_requantize_blocks(P, N, lv, r, num_workers=K, **kw)
+        assert torch.equal(qk, qh) and same(mk, mh)
     for T in (1, 2):
         tables, ns = stack_level_tables([lv, uniform_levels(5, dev)][:T])
         seg = torch.randint(0, T, (nb,), generator=gen, device=dev, dtype=torch.int32)
         kw5 = dict(num_symbols=ns, q_is_inf=q_is_inf)
         ek = quantize_dequantize_segments(x, None, tables, seg, seed=seed, **kw5)
-        assert torch.equal(ek, quantize_dequantize_segments(x, r, tables, seg, **kw5))
+        assert same(ek, quantize_dequantize_segments(x, r, tables, seg, **kw5))
         if q_is_inf:
-            assert torch.equal(ek.cpu(), ref.quantize_dequantize_segments_plain(
+            assert same(ek.cpu(), ref.quantize_dequantize_segments_plain(
                 x.cpu(), None, tables.cpu(), seg.cpu(), seed=seed, **kw5))
     if q_is_inf:
         pp, npl = ref.quantize_blocks_plain(x.cpu(), None, lv.cpu(), seed=seed, **kw)
-        assert torch.equal(pk.cpu(), pp) and torch.equal(nk.cpu(), npl)
+        assert torch.equal(pk.cpu(), pp) and same(nk.cpu(), npl)
         qp, mp = ref.dequant_reduce_requantize_blocks_plain(P.cpu(), N.cpu(), lv.cpu(), None,
                                                             seed=seed, **kw)
-        assert torch.equal(qk.cpu(), qp) and torch.equal(mk.cpu(), mp)
+        assert torch.equal(qk.cpu(), qp) and same(mk.cpu(), mp)
     after = cuda.launch_counts()
     assert [after[k] - before[k] for k in ("quantize_blocks/prng",
                                            "dequant_reduce_requantize_blocks/prng",
-                                           "quantize_dequantize_segments/prng")] == [1, 1, 2]
+                                           "quantize_dequantize_segments/prng")] == [1, 3, 2]
 
 
 def test_nccl_exchange_matches_gloo(tmp_path):

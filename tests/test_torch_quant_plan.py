@@ -52,6 +52,21 @@ def test_level_tables_bit_exact(s):
         tq.validate_levels(tq.uniform_levels(s, "cpu").flip(0), s)
 
 
+@pytest.mark.parametrize("make", [tq.uniform_levels, tq.exponential_levels])
+def test_level_tables_are_sorted_for_the_bracket_search(make):
+    """The CUDA quantize kernels find the bracket by binary search, which
+    equals the reference's compare count only on a sorted table: every
+    table the port builds, up to the kernels' 128 symbols, is strictly
+    increasing from 0 to 1, and ``validate_levels`` refuses an unsorted
+    one."""
+    for s in range(1, 127):
+        lv = make(s, "cpu")
+        tq.validate_levels(lv, s)
+        assert bool((lv[1:] > lv[:-1]).all())
+    with pytest.raises(ValueError, match="strictly increasing"):
+        tq.validate_levels(torch.tensor([0.0, 0.5, 0.25, 1.0]), 2)
+
+
 def test_pack_int4_bytes_and_inverse():
     rng = np.random.RandomState(0)
     v = rng.randint(-7, 8, size=4096).astype(np.int32)
