@@ -6,8 +6,9 @@ imports only ``repro_torch`` (from ``src/`` beside this file) and:
 
 1. prints the card (``nvidia-smi --query-gpu=name,power.limit``);
 2. builds the CUDA exchange kernels from ``src/repro_torch/csrc``, prints
-   the registers, shared memory and spills of kernels 1 and 2 from the
-   ``-Xptxas=-v`` report with the occupancy they imply, and counts the
+   the registers, shared memory and spills of kernels 1, 2 and 5 from the
+   ``-Xptxas=-v`` report with the occupancy they imply (kernel 5's at
+   T = 2 and at T = 32 tables), and counts the
    integer instructions of the device PRNG (Philox4x32-10) in the SASS
    of its test entry (``cuobjdump -sass``): the integer term of the
    device-PRNG variants' bound;
@@ -23,13 +24,19 @@ imports only ``repro_torch`` (from ``src/`` beside this file) and:
    one level apart), f32 outputs and norms within rtol 1e-6 with NaN in
    the same places.  Kernel 5 (segment-fused
    quantize∘dequantize) over T {1, 2, 3} stacked tables with mixed symbol
-   counts x q_norm {inf, 2} x stochastic / nearest rounding, with zero
-   rows and a NaN row: bit-equal for q = inf, rtol 1e-6 for q = 2.  The
-   device PRNG (TPU kernel B5): Philox's known-answer vectors through its
-   test entry, then kernels 1 (int8, int4), 2 and 5 (T = 1, 2) drawing
-   their own noise (kernels 1 and 2 at the same buckets, rows and NaN
-   rows), bit-equal to the same kernels fed ``philox_uniform``'s draw of
-   the seed on the card, and held to the plain versions;
+   counts at buckets {512, 130, 37}, T = 32 tables of 2-128 symbols, two
+   128-symbol tables (exponential: the binary search), buckets 1024 and
+   1023, more rows than the card holds warps and rows whose table id lies
+   outside [0, T) (NaN rows), x q_norm {inf, 2} x stochastic / nearest
+   rounding, with zero rows and a NaN row: bit-equal for q = inf, rtol
+   1e-6 for q = 2 (over the 4 M coordinates of the many-row case a q = 2
+   coordinate may differ only as a rounding tie that the L2 norm's last
+   bit decides: ``_segment_ties``).  The device PRNG (TPU kernel B5):
+   Philox's known-answer vectors through its test entry, then kernels 1
+   (int8, int4), 2 and 5 (kernel 5 over the same cases) drawing their own
+   noise (kernels 1 and 2 at the same buckets, rows and NaN rows),
+   bit-equal to the same kernels fed ``philox_uniform``'s draw of the seed
+   on the card, and held to the plain versions;
 4. drives the paths, each run with the launch counts reset just before
    it and read just after:
    a. the LM train step through the training entry point
@@ -59,16 +66,18 @@ imports only ``repro_torch`` (from ``src/`` beside this file) and:
       arm's first kernel-5 call on the path ([3 x 19, 512]: num_symbols
       (17,) for uq8, (7,) for uq4, (7, 17) for layerwise) is kept, its
       output held bit-equal to the plain version on the same inputs, and
-      the kernel timed at that shape (the ``gan-*`` rows of kernel 5);
+      the kernel timed at that shape (the ``gan-*`` rows of kernel 5: ``ms``
+      is the kernel's device time a launch from ``torch.profiler``,
+      ``wrapper_ms`` the wrapper's time a call back to back);
 5. runs each kernel at its main-path shape (the flat exchange buffer of
    tinyllama-1.1b, 2,148,532 rows x 512): kernels 1, 2, 3 in int8 as
    two_phase chains them, kernels 1 and 4 in int4 as gather does, and
    kernel 5 on the same buffer with one table (qgenx int8) and with the
    layerwise policy's two (int4 above 65536 coordinates, int8 below): the
-   ``tinyllama-buffer-*`` rows, a size no path gives kernel 5 (it
-   carries the GAN path's launches).  The device-PRNG variants of
-   kernels 1, 2 and 5 run beside their host-noise kernels (the
-   ``/prng`` rows).
+   ``tinyllama-buffer-*`` rows, a size no path gives kernel 5 (0
+   launches; two windows of 10 calls, the second kept).  The device-PRNG
+   variants of kernels 1, 2 and 5 run beside their host-noise kernels
+   (the ``/prng`` rows).
    Each output is held against the plain version's on the same inputs
    (payload bytes and kernel 5's estimates exactly equal, f32 within rtol
    1e-6), and each kernel is timed beside its bound and its plain
@@ -349,12 +358,12 @@ def prng_parity(torch, gen, errs) -> int:
     """The device-PRNG variants (B5) on the card.  Philox's known answers
     through the test entry that writes raw words (and its words on random
     counters against the plain version's); then kernels 1 (int8, int4),
-    2 (K = 1, 2, 8) and 5 (T = 1, 2) drawing their own noise, each held
+    2 (K = 1, 2, 8) and 5 drawing their own noise, each held
     bit-equal to the same kernel fed ``philox_uniform``'s draw of the seed
     materialized on the card (payload bytes, norms and estimates, q = inf
     and q = 2: the same arithmetic on the same noise), and to the plain
-    version on the CPU (``_check_indices`` / ``_check_segment``)."""
-    from repro_torch.core.exchange_plan import stack_level_tables
+    version on the CPU (``_check_indices`` / ``_check_segment``); kernel 5
+    over ``segment_cases``."""
     from repro_torch.core.quantization import uniform_levels
     from repro_torch.kernels import ref
     from repro_torch.kernels.dequant_reduce import dequant_reduce_requantize_blocks
@@ -430,26 +439,23 @@ def prng_parity(torch, gen, errs) -> int:
                                                             bits=bits),
                                 ref.dequantize_blocks_plain(qp, mp, lv.cpu(), bits=bits)))
                     cases += 1
-    nb = 37
-    all_tables = [uniform_levels(15, dev), uniform_levels(5, dev)]
-    for T in (1, 2):
-        tables, ns = stack_level_tables(all_tables[:T])
-        for bucket in (512, 130, 37):
+    for case in segment_cases(torch):
+        for q_is_inf in (True, False):
+            x, _, tables, ns, seg = segment_inputs(torch, gen, case, dev)
+            nb, bucket = x.shape
             r = ref.philox_uniform(seed, 0, nb, bucket, dev)
-            for q_is_inf in (True, False):
-                tag = f"segment/prng T={T} ns={ns} bucket={bucket} q={'inf' if q_is_inf else 2}"
-                kw = dict(num_symbols=ns, q_is_inf=q_is_inf)
-                x = torch.randn((nb, bucket), generator=gen, device=dev) * 3
-                x[zero_rows] = 0.0
-                seg = torch.randint(0, T, (nb,), generator=gen, device=dev, dtype=torch.int32)
-                got = quantize_dequantize_segments(x, None, tables, seg, seed=seed, **kw)
-                same(tag, (got,), (quantize_dequantize_segments(x, r, tables, seg, **kw),))
-                want = ref.quantize_dequantize_segments_plain(x.cpu(), None, tables.cpu(),
-                                                              seg.cpu(), seed=seed, **kw)
-                errs["quantize_dequantize_segments/prng"] = max(
-                    errs["quantize_dequantize_segments/prng"],
-                    _check_segment(torch, tag, got.cpu(), want, q_is_inf))
-                cases += 1
+            tag = (f"segment/prng {case[0]} ns={ns if len(ns) < 4 else len(ns)} rows={nb} "
+                   f"bucket={bucket} bad={case[3]} q={'inf' if q_is_inf else 2}")
+            kw = dict(num_symbols=ns, q_is_inf=q_is_inf)
+            got = quantize_dequantize_segments(x, None, tables, seg, seed=seed, **kw)
+            same(tag, (got,), (quantize_dequantize_segments(x, r, tables, seg, **kw),))
+            want = segment_plain(torch, x.cpu(), None, tables.cpu(), seg.cpu(), case[3],
+                                 seed=seed, **kw)
+            ties = (x.cpu(), r.cpu(), tables.cpu(), seg.cpu(), ns, True) if nb > 1000 else None
+            errs["quantize_dequantize_segments/prng"] = max(
+                errs["quantize_dequantize_segments/prng"],
+                _check_segment(torch, tag, got.cpu(), want, q_is_inf, ties))
+            cases += 1
     log(f"  device PRNG: known answers held, {cases} cases equal the host-noise kernels")
     return cases
 
@@ -514,19 +520,30 @@ def implied_occupancy(regs: int, smem: int, threads: int = ROW_KERNEL_THREADS) -
     return blocks, blocks * warps
 
 
+def segment_smem(T: int, s_max: int) -> int:
+    """Kernel 5's dynamic shared memory a block: the stacked tables and a
+    260-byte cell count per table (``qx_segment_qdq``)."""
+    return T * (4 * s_max + 260)
+
+
 def row_kernel_resources(build_log: str) -> None:
-    """Kernels 1 and 2, every instantiation: registers, shared memory and
+    """Kernels 1, 2 and 5, every instantiation: registers, shared memory and
     spills from the ``-Xptxas=-v`` report, and the occupancy they imply at
-    256 threads a block (the grid the launch sizes from the same numbers)."""
+    256 threads a block (the grid the launch sizes from the same numbers);
+    kernel 5's beside its dynamic shared memory at the GAN path's
+    layerwise tables (T = 2, 17 symbols) and at the kernel's maximum
+    (T = 32, 128 symbols)."""
     import re
 
-    found, name = 0, None
+    found, name = {"row": 0, "segment": 0}, None
     spills = (0, 0)
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = re.search(r"\d(quantize_kernel|dequant_reduce_requantize_kernel)"
-                             r"ILi(\d)ELb(\d)ENS_\d+(\w+?Noise)E", m.group(1))
+            name = (re.search(r"\d(quantize_kernel|dequant_reduce_requantize_kernel)"
+                              r"ILi(\d)ELb(\d)ENS_\d+(\w+?Noise)E", m.group(1))
+                    or re.search(r"\d(segment_qdq_kernel)ILi(\d)()ENS_\d+(\w+?Noise)E",
+                                 m.group(1)))
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
@@ -534,65 +551,166 @@ def row_kernel_resources(build_log: str) -> None:
         m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
         if m and name:
             regs, smem = int(m.group(1)), int(m.group(2))
-            blocks, warps = implied_occupancy(regs, smem)
             kernel, vec, pack4, noise = name.groups()
-            log(f"  {kernel}<VEC={vec}, {'int4' if pack4 == '1' else 'int8'}, {noise}>: "
-                f"{regs} registers, {smem} B shared, spills {spills[0]} B stored / "
-                f"{spills[1]} B loaded -> {blocks} blocks x 8 warps = {warps} of "
-                f"{SM_WARPS} warps per SM ({100 * warps / SM_WARPS:.1f} % occupancy)")
-            found += 1
+            res = f"{regs} registers, {smem} B shared, spills {spills[0]} B stored / " \
+                  f"{spills[1]} B loaded"
+            if kernel == "segment_qdq_kernel":
+                occ = []
+                for T, s_max in ((2, 17), (32, 128)):
+                    blocks, warps = implied_occupancy(regs, smem + segment_smem(T, s_max))
+                    occ.append(f"T={T}, S_max={s_max}: {blocks} blocks x 8 warps = {warps} of "
+                               f"{SM_WARPS} warps per SM ({100 * warps / SM_WARPS:.1f} %)")
+                log(f"  {kernel}<VEC={vec}, {noise}>: {res} -> {'; '.join(occ)}")
+                found["segment"] += 1
+            else:
+                blocks, warps = implied_occupancy(regs, smem)
+                log(f"  {kernel}<VEC={vec}, {'int4' if pack4 == '1' else 'int8'}, {noise}>: "
+                    f"{res} -> {blocks} blocks x 8 warps = {warps} of {SM_WARPS} warps per SM "
+                    f"({100 * warps / SM_WARPS:.1f} % occupancy)")
+                found["row"] += 1
             name = None
-    if found != 20:
-        fail(f"the ptxas report lists {found} instantiations of kernels 1 and 2, not 20")
+    if found != {"row": 20, "segment": 9}:
+        fail(f"the ptxas report lists {found} instantiations of kernels 1 and 2 (want 20) "
+             "and of kernel 5 (want 9)")
 
 
-def _check_segment(torch, name, got, want, q_is_inf):
+def _check_segment(torch, name, got, want, q_is_inf, ties=None):
     """Kernel 5 vs its plain version: the same NaNs; elsewhere bit-equal for
     q = inf, rtol 1e-6 for q = 2 (the L^2 sum's order); returns the max
-    abs error over the finite coordinates."""
+    abs error over the finite coordinates.  With ``ties`` (the inputs: x,
+    noise, tables, table ids, symbol counts, stochastic), a q = 2 coordinate beyond rtol
+    1e-6 must be a rounding tie that the norm's last bit decides
+    (``_segment_ties``); it is left out of the comparison."""
     if not torch.equal(got.isnan(), want.isnan()):
         fail(f"{name}: NaN positions differ from the plain version")
     g, w = got.nan_to_num(), want.nan_to_num()
     if q_is_inf and not torch.equal(g, w):
         fail(f"{name}: {int((g != w).sum())} estimates differ from the plain version")
+    if ties is not None and not q_is_inf:
+        flips = _segment_ties(torch, name, g, w, *ties)
+        g, w = g.masked_fill(flips, 0.0), w.masked_fill(flips, 0.0)
     return _close(torch, name, g, w)
 
 
-def segment_parity(torch, gen, errs) -> int:
-    """Kernel 5 against its plain version at small shapes."""
+TIE = 1e-5  # |xi - draw| (or |xi - 0.5|) under which an ulp of the norm decides
+
+
+def _segment_ties(torch, name, got, want, x, r, tables, seg, ns, stochastic):
+    """The coordinates where kernel 5 and its plain version differ beyond
+    rtol 1e-6 at q = 2.  Each must be a tie: the plain version's xi within
+    TIE of its draw (of 0.5 with nearest rounding), so that the norm's
+    last bit, which the two sum in different orders, decides the rounding,
+    and the kernel's value the other end of the plain version's bracket.
+    Fails otherwise; returns the mask."""
+    from repro_torch.kernels.ref import norm_rows
+
+    flips = ~torch.isclose(got, want, rtol=1e-6, atol=0.0)
+    idx = flips.nonzero().tolist()
+    if not idx:
+        return flips
+    norms = norm_rows(x.float(), False)
+    for i, j in idx:
+        t = int(seg[i])
+        lv = tables[t]
+        norm = float(norms[i])
+        u = min(max(abs(float(x[i, j])) / (norm if norm > 0 else 1.0), 0.0), 1.0)
+        tau = int((lv[1:ns[t] - 1] <= u).sum())  # the interior levels' compares
+        lo, hi = float(lv[tau]), float(lv[tau + 1])
+        xi = (u - lo) / (hi - lo)
+        edge = float(r[i, j]) if stochastic else 0.5
+        ends = {lo * norm, hi * norm}
+        if abs(xi - edge) > TIE or not any(
+                math.isclose(abs(float(got[i, j])), e, rel_tol=1e-5) for e in ends):
+            fail(f"{name}: estimate ({i}, {j}) {float(got[i, j])!r} differs from the plain "
+                 f"version's {float(want[i, j])!r} and is no tie (xi {xi!r}, draw {edge!r})")
+    log(f"  {name}: {len(idx)} rounding ties taken the other way (q = 2: the norm's last bit)")
+    return flips
+
+
+def segment_tables(torch, name, dev):
+    """Kernel 5's stacked level tables of one case: the first T of 17, 7 and
+    5 symbols (``T1``, ``T2``, ``T3``); 32 tables of 2-128 symbols, uniform
+    (the cell lookup) and exponential (the binary search), the kernel's
+    maximum T (``T32``); or a 128-symbol exponential table beside a
+    128-symbol uniform one (``exp128``)."""
     from repro_torch.core.exchange_plan import stack_level_tables
     from repro_torch.core.quantization import exponential_levels, uniform_levels
+
+    if name == "T32":
+        return stack_level_tables(
+            [uniform_levels(s, dev) for s in (0, 1, 2, 3, 5, 7, 10, 15, 20, 31, 40, 63, 64,
+                                              100, 125, 126)]
+            + [exponential_levels(s, dev) for s in (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 12, 15, 20,
+                                                    30, 60, 126)])
+    if name == "exp128":
+        return stack_level_tables([exponential_levels(126, dev), uniform_levels(126, dev)])
+    return stack_level_tables([uniform_levels(15, dev), uniform_levels(5, dev),
+                               exponential_levels(3, dev)][:int(name[1:])])
+
+
+def segment_cases(torch) -> list:
+    """Kernel 5's parity cases (tables, rows, bucket, rows given a table id
+    outside [0, T)): T = 1, 2, 3 at buckets 512, 130 (VEC 2) and 37 (VEC
+    1); T = 32; the 128-symbol tables; buckets 1024 (four chunks a warp)
+    and 1023; more rows than the card holds warps (each warp strides); two
+    rows with table ids -1 and T."""
+    old = [(f"T{T}", 37, b, ()) for T in (1, 2, 3) for b in (512, 130, 37)]
+    return old + [("T32", 101, 512, ()), ("exp128", 37, 512, ()), ("T3", 37, 1024, ()),
+                  ("T3", 37, 1023, ()), ("T2", wrap_rows(torch), 512, ()),
+                  ("T3", 37, 512, (3, 20))]
+
+
+def segment_inputs(torch, gen, case, dev):
+    """x with zero rows 0 and 17 and a NaN in row 5, uniform noise, the
+    tables and random table ids (the case's bad rows given -1 and T)."""
+    name, nb, bucket, bad = case
+    tables, ns = segment_tables(torch, name, dev)
+    x = torch.randn((nb, bucket), generator=gen, device=dev) * 3
+    x[[0, 17]] = 0.0
+    x[5, bucket // 2] = float("nan")
+    r = torch.rand((nb, bucket), generator=gen, device=dev)
+    seg = torch.randint(0, len(ns), (nb,), generator=gen, device=dev, dtype=torch.int32)
+    seg[list(bad)] = torch.tensor([-1, len(ns)], dtype=torch.int32, device=dev)[:len(bad)]
+    return x, r, tables, ns, seg
+
+
+def segment_plain(torch, x, r, tables, seg, bad, **kw):
+    """The plain version, NaN over the rows whose table id is out of range
+    (the plain version takes no such id: it is given table 0 there)."""
     from repro_torch.kernels import ref
+
+    want = ref.quantize_dequantize_segments_plain(
+        x, r, tables, seg.clamp(0, tables.shape[0] - 1), **kw)
+    want[list(bad)] = float("nan")
+    return want
+
+
+def segment_parity(torch, gen, errs) -> int:
+    """Kernel 5 against its plain version at small shapes (``segment_cases``),
+    with host noise and with nearest rounding."""
     from repro_torch.kernels.segment_quantize import quantize_dequantize_segments
 
     dev = torch.device("cuda")
-    nb = 37
-    all_tables = [uniform_levels(15, dev), uniform_levels(5, dev), exponential_levels(3, dev)]
     cases = 0
-    for T in (1, 2, 3):
-        tables, ns = stack_level_tables(all_tables[:T])  # 17, 7, 5 symbols
-        for bucket in (512, 130, 37):
-            for q_is_inf in (True, False):
-                for stochastic in (True, False):
-                    tag = (f"segment T={T} ns={ns} bucket={bucket} q={'inf' if q_is_inf else 2}"
-                           f" {'stochastic' if stochastic else 'nearest'}")
-                    x = torch.randn((nb, bucket), generator=gen, device=dev) * 3
-                    x[[0, 17]] = 0.0
-                    x[5, bucket // 2] = float("nan")
-                    r = torch.rand((nb, bucket), generator=gen, device=dev)
-                    seg = torch.randint(0, T, (nb,), generator=gen, device=dev,
-                                        dtype=torch.int32)
-                    kw = dict(num_symbols=ns, q_is_inf=q_is_inf, stochastic=stochastic)
-                    got = quantize_dequantize_segments(x, r if stochastic else None, tables,
-                                                       seg, **kw)
-                    want = ref.quantize_dequantize_segments_plain(x, r, tables, seg, **kw)
-                    torch.cuda.synchronize()
-                    if not bool(got[5].isnan().all()) or bool((got[[0, 17]] != 0).any()):
-                        fail(f"{tag}: the NaN row or the zero rows are wrong")
-                    errs["quantize_dequantize_segments"] = max(
-                        errs["quantize_dequantize_segments"],
-                        _check_segment(torch, tag, got, want, q_is_inf))
-                    cases += 1
+    for case in segment_cases(torch):
+        for q_is_inf in (True, False):
+            for stochastic in (True, False):
+                x, r, tables, ns, seg = segment_inputs(torch, gen, case, dev)
+                tag = (f"segment {case[0]} ns={ns if len(ns) < 4 else len(ns)} rows={case[1]} "
+                       f"bucket={case[2]} bad={case[3]} q={'inf' if q_is_inf else 2} "
+                       f"{'stochastic' if stochastic else 'nearest'}")
+                kw = dict(num_symbols=ns, q_is_inf=q_is_inf, stochastic=stochastic)
+                got = quantize_dequantize_segments(x, r if stochastic else None, tables, seg,
+                                                   **kw)
+                want = segment_plain(torch, x, r, tables, seg, case[3], **kw)
+                torch.cuda.synchronize()
+                if not bool(got[5].isnan().all()) or bool((got[[0, 17]] != 0).any()):
+                    fail(f"{tag}: the NaN row or the zero rows are wrong")
+                ties = (x, r, tables, seg, ns, stochastic) if case[1] > 1000 else None
+                errs["quantize_dequantize_segments"] = max(
+                    errs["quantize_dequantize_segments"],
+                    _check_segment(torch, tag, got, want, q_is_inf, ties))
+                cases += 1
     return cases
 
 
@@ -775,17 +893,22 @@ def gan_path(torch, int_ops: float) -> tuple:
         tag = f"GAN {arm} [{x.shape[0]} x 512] T={len(ns)} ns={ns}"
         want = ref.quantize_dequantize_segments_plain(x, r, tables, seg, **kw)
         err = _check_segment(torch, f"{tag} (the path's output)", got, want, True)
-        ms, again = _time_ms(torch, lambda: wrapper(x, r, tables, seg, **kw), 200)
+        wrapper_ms, again = _time_ms(torch, lambda: wrapper(x, r, tables, seg, **kw), 200)
+        _check_segment(torch, f"{tag} (timed)", again, want, True)
+        ms = device_ms(torch, lambda: wrapper(x, r, tables, seg, **kw), "segment_qdq_kernel",
+                       200)
         plain, _ = _time_ms(torch, lambda: ref.quantize_dequantize_segments_plain(
             x, r, tables, seg, **kw), 50)
-        _check_segment(torch, f"{tag} (timed)", again, want, True)
         n = x.numel()
         name = ("quantize_dequantize_segments/prng/gan-uq8" if prng
                 else f"quantize_dequantize_segments/gan-{arm}")
-        rows.append(kernel_row(name, out[arm][1], ms, plain, err,
-                               (8 if prng else 12) * n + 4 * x.shape[0] + 4 * tables.numel(),
-                               n * (10 + max(ns)), f"{tag}, the GAN path's shape",
-                               int_ops=n * int_ops if prng else 0))
+        row = kernel_row(name, out[arm][1], ms, plain, err,
+                         (8 if prng else 12) * n + 4 * x.shape[0] + 4 * tables.numel(),
+                         n * (10 + max(ns)), f"{tag}, the GAN path's shape; device time",
+                         int_ops=n * int_ops if prng else 0)
+        row["wrapper_ms"] = wrapper_ms
+        log(f"    wrapper (host and device, back to back): {wrapper_ms:.4f} ms a call")
+        rows.append(row)
     return out, rows
 
 
@@ -880,6 +1003,31 @@ def _time_ms(torch, fn, reps: int):
     return start.elapsed_time(end) / reps, out
 
 
+def device_ms(torch, fn, kernel: str, reps: int) -> float:
+    """The device time of one launch of ``kernel`` (a substring of the CUDA
+    kernel's name): ``reps`` calls of ``fn`` under ``torch.profiler``, the
+    kernel's device time summed by ``key_averages()`` over the launches the
+    profiler recorded (it may drop some), divided by their count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, launches = 0.0, 0
+    for evt in prof.key_averages():
+        if kernel in evt.key:
+            us += getattr(evt, "device_time_total", 0.0) or getattr(evt, "cuda_time_total", 0.0)
+            launches += evt.count
+    if launches < reps // 2 or us <= 0.0:
+        fail(f"the profiler saw {launches} launches of {kernel} ({us} us of device time) "
+             f"in {reps} calls")
+    log(f"    profiler: {launches} of {reps} launches recorded, {us:.1f} us of device time")
+    return us / launches / 1e3
+
+
 def kernel_key(name: str) -> str:
     """The launch counter (and REPLACES key) of a row name such as
     ``quantize_blocks/int8`` or ``quantize_blocks/prng/int8``."""
@@ -968,11 +1116,11 @@ def kernel_times(torch, launches: dict, errs: dict, shapes: list, int_ops: float
     gen.manual_seed(99)
     out = []
 
-    def entry(name, bits, ms, plain_ms, err, nbytes, ops, what=None, iops=0):
+    def entry(name, bits, ms, plain_ms, err, nbytes, ops, what=None, iops=0, runs=None):
         kernel = kernel_key(name)
-        out.append(kernel_row(name, launches[kernel], ms, plain_ms, max(err, errs[kernel]),
-                              nbytes, ops, f"{rows} x {bucket}, {what or f'int{bits}'}",
-                              int_ops=iops))
+        out.append(kernel_row(name, launches[kernel] if runs is None else runs, ms, plain_ms,
+                              max(err, errs[kernel]), nbytes, ops,
+                              f"{rows} x {bucket}, {what or f'int{bits}'}", int_ops=iops))
 
     def draw(seed, sl):
         return ref.philox_uniform(seed, sl.start, sl.stop - sl.start, bucket, dev)
@@ -1067,7 +1215,8 @@ def segment_times(torch, gen, rows, bucket, shapes, entry, int_ops) -> None:
     """Kernel 5 on the tinyllama-1.1b compress buffer, with the qgenx int8
     table (T = 1) and with the layerwise plan's two segments (T = 2: leaves
     above 65536 coordinates in int4 first, the rest in int8), each with
-    host noise and with the device PRNG.  The plain version runs in row
+    host noise and with the device PRNG, each in two windows of 10 calls
+    (the second is the row's time).  The plain version runs in row
     chunks; its chunks are timed together and each is held bit-equal to
     the kernel's rows."""
     from repro_torch.core.exchange import ExchangeConfig, make_exchange
@@ -1099,8 +1248,15 @@ def segment_times(torch, gen, rows, bucket, shapes, entry, int_ops) -> None:
         for prng in (False, True):
             name = "quantize_dequantize_segments" + ("/prng" if prng else "")
             seed = PRNG_SEED if prng else None
-            ms, got = _time_ms(torch, lambda: quantize_dequantize_segments(
-                x, None if prng else r, stacked, seg, seed=seed, **kw), 10)
+            def call():
+                return quantize_dequantize_segments(x, None if prng else r, stacked, seg,
+                                                    seed=seed, **kw)
+
+            # two windows: the first after the buffers' allocation reads up to
+            # 0.9 ms slower with host noise; the second is the kernel's time
+            first, _ = _time_ms(torch, call, 10)
+            ms, got = _time_ms(torch, call, 10)
+            log(f"  {name} {tag}: first window {first:.4f} ms, second {ms:.4f} ms")
 
             def plain_chunk(sl):
                 noise = (ref.philox_uniform(PRNG_SEED, sl.start, sl.stop - sl.start, bucket,
@@ -1119,8 +1275,8 @@ def segment_times(torch, gen, rows, bucket, shapes, entry, int_ops) -> None:
             # subtracts, a divide, the rounding compare, sign and product
             entry(f"{name}/tinyllama-buffer-{tag}", 0, ms, plain, 0.0,
                   (8 if prng else 12) * n + 4 * rows + 4 * stacked.numel(), n * (10 + max(ns)),
-                  what=f"T={len(tables)} ns={ns}; not a shape the GAN path runs, its launches "
-                       "are the GAN path's", iops=n * int_ops if prng else 0)
+                  what=f"T={len(tables)} ns={ns}; no path runs kernel 5 at this size",
+                  iops=n * int_ops if prng else 0, runs=0)
 
 
 def main() -> None:
@@ -1163,7 +1319,7 @@ def main() -> None:
     for line in cuda.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
-    log("  kernels 1 and 2 (one warp per row):")
+    log("  kernels 1, 2 and 5 (one warp per row):")
     row_kernel_resources(cuda.build_log())
     int_ops = philox_int_ops(torch)
     log(f"  device draw: {int_ops} integer operations per coordinate")

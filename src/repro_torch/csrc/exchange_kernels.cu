@@ -27,8 +27,8 @@
 // and adds ~12 integer operations per coordinate (10 Philox rounds per
 // four draws).
 //
-// What bounds them on the H100.  Kernels 3, 4 and 5 by device-memory
-// bytes (a few flops per byte moved).  Kernels 1 and 2 move few bytes per
+// What bounds them on the H100.  Kernels 3 and 4 by device-memory bytes
+// (a few flops per byte moved).  Kernels 1, 2 and 5 move few bytes per
 // coordinate for what they compute (two IEEE divisions, the bracket, the
 // rounding and, for kernel 2, the dequantized K-mean: ~60-80 issued
 // instructions per coordinate), so instruction issue bounds them as much
@@ -36,45 +36,48 @@
 // and the device-draw variants (+~15 issue slots per coordinate for
 // Philox, whose multiplies run at half rate) are bound by issue.
 //
-// Kernels 1 and 2 (quantize; dequant∘mean∘requantize): one warp per bucket
-// row, kWarpRows rows to a block, each warp striding over the rows of a
-// grid sized to fill every SM (row_grid).  A lane holds kLaneCols = 8
-// coordinates in registers, a 256-wide chunk per warp (two 16-byte groups
-// a lane when the bucket is a multiple of 4, the warp's lanes on
-// neighbouring groups so that each access of the warp is one contiguous
-// span); that keeps a thread near 64 registers, 32 warps an SM, enough to
-// hide each row's load latency behind the other warps' arithmetic (16
-// coordinates a lane took ~100 registers and ran slower).  The row norm is
+// Kernels 1, 2 and 5 (quantize; dequant∘mean∘requantize; the segment-fused
+// quantize∘dequantize): one warp per bucket row, kWarpRows rows to a
+// block, each warp striding over the rows of a grid sized to fill every SM
+// (row_grid, given the kernel's real shared memory).  A lane holds
+// kLaneCols = 8 coordinates in registers, a 256-wide chunk per warp (two
+// 16-byte groups a lane when the bucket is a multiple of 4, the warp's
+// lanes on neighbouring groups so that each access of the warp is one
+// contiguous span); that keeps a thread near 64 registers, 32 warps an SM,
+// enough to hide each row's load latency behind the other warps'
+// arithmetic (16 coordinates a lane took ~100 registers and ran slower;
+// kernel 5's two chunks take 72, 24 warps an SM).  The row norm is
 // a warp-shuffle reduction: no block barrier once the level table is
 // staged.  Kernel 2 computes the K-mean straight into those registers; the
 // reduced row never leaves them.  A row wider than one chunk (the main
 // path's 512 is two) keeps its first chunk in registers and takes a second
 // pass over the rest: kernel 1 re-reads x (from L1/L2), kernel 2
 // recomputes the K-mean from the payload (the same arithmetic, so the same
-// bits).  The host noise is loaded together with the row (kernel 2: right
-// after worker 0's payload, before anything waits on it); the device draw
+// bits); kernel 5 holds two chunks, a 512 row whole, and re-reads only
+// past them.  The host noise is loaded together with the row (kernel 2:
+// right after worker 0's payload, before anything waits on it); the device draw
 // is computed at that point too, before the norm, under the loads'
 // latency.  The bracket tau = #{1 <= j <= s : lv[j] <= u} is one lookup in
 // a 257-cell table of [0, 1] and one compare when no cell holds two levels
 // (every uniform table), else a binary search over the interior levels (4
-// steps for s = 15, where a scan compares 15 times).  Either equals the
-// reference's compare count for a SORTED level table only: every table the
-// port builds is one (uniform_levels, exponential_levels; validate_levels
-// requires strictly increasing levels), and a caller of these kernels must
-// keep to that.  A zero dividend skips __fdiv_rn's slow path (0 / b = +0).
+// steps for s = 15, where a scan compares 15 times); kernel 5 keeps one
+// such cell table per stacked level table, in a compact layout.  Either
+// equals the reference's compare count for a SORTED level table only:
+// every table the port builds is one (uniform_levels, exponential_levels;
+// validate_levels requires strictly increasing levels), and a caller of
+// these kernels must keep to that.  A zero dividend skips __fdiv_rn's slow
+// path (0 / b = +0).
 //
-// Kernels 3, 4 and 5: one thread block per bucket row, the level table
-// (s + 2 <= 128 floats; kernel 5: the stacked [T, S_max] tables) staged in
-// shared memory, a block reduction for kernel 5's row norm, 16-byte loads
-// and stores when the bucket width allows (VEC = 4 coordinates per thread
-// step).  All five handle the ragged row edge here — no padding of rows to
-// a tile multiple — and read each input once from HBM and write each
-// output once.
+// Kernels 3 and 4: one thread block per bucket row, the level table (s + 2
+// <= 128 floats) staged in shared memory, 16-byte loads and stores when
+// the bucket width allows (VEC = 4 coordinates per thread step).  All five
+// handle the ragged row edge here — no padding of rows to a tile multiple
+// — and read each input once from HBM and write each output once.
 //
 // Bit parity with the reference: u = |x| / norm and xi = (u - lo) / (hi -
-// lo) are IEEE round-to-nearest divisions (__fdiv_rn), products and sums
-// use the _rn intrinsics so nvcc cannot contract them into FMAs (the file
-// is also built with -fmad=false), and the K-mean is acc * (1/K) summed in
+// lo) are IEEE round-to-nearest divisions (__fdiv_rn, or div_rn), products
+// and sums use the _rn intrinsics so nvcc cannot contract them into FMAs
+// (the file is also built with -fmad=false), and the K-mean is acc * (1/K) summed in
 // worker order — the Pallas kernels' arithmetic.  Indices, packed bytes,
 // L^inf norms and kernel 5's estimates therefore match the plain PyTorch
 // versions bit for bit; L^2 norms differ only in summation order.
@@ -107,30 +110,6 @@ __device__ __forceinline__ void load_levels(float* s_lv, const float* levels,
 // which would hide a non-finite gradient behind a finite norm)
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || a > b) ? a : b;
-}
-
-// Block-wide max (q = inf) or sum (q = 2) of one float per thread.
-__device__ __forceinline__ float block_reduce(float v, bool is_max, float* s_red) {
-  for (int off = 16; off > 0; off >>= 1) {
-    float o = __shfl_down_sync(0xffffffffu, v, off);
-    v = is_max ? nan_max(v, o) : __fadd_rn(v, o);
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-  if (lane == 0) s_red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < nwarps ? s_red[lane] : 0.0f;
-    for (int off = 16; off > 0; off >>= 1) {
-      float o = __shfl_down_sync(0xffffffffu, v, off);
-      v = is_max ? nan_max(v, o) : __fadd_rn(v, o);
-    }
-    if (lane == 0) s_red[0] = v;
-  }
-  __syncthreads();
-  float r = s_red[0];
-  __syncthreads();  // s_red is reused by the next reduction
-  return r;
 }
 
 __device__ __forceinline__ float norm_term(float x, bool is_max) {
@@ -668,78 +647,179 @@ __global__ void __launch_bounds__(kRowThreads) dequant_reduce_requantize_kernel(
 }
 
 
-// Kernel 5: fused Q∘DEQ of one bucket row under its own level table.  The
-// row's table t = seg[row] is one of the T stacked tables (shared memory,
-// T * S_max floats); only the f32 estimate is written.  The bracket counts
-// the interior levels 1 .. ns[t] - 2 of table t — the reference's masked
-// compare over the union of levels, which never counts a row against
-// another table's entries or the 1.0 padding.  The clamp keeps a NaN
-// (as jnp.clip and torch.clamp do) so a non-finite row matches the plain
-// version; a table id outside [0, T) writes NaN over its row.  Noise is
-// NoNoise for nearest rounding (xi >= 0.5).
+// Kernel 5: fused Q∘DEQ of one bucket row under its own level table, one
+// warp per row as in kernels 1 and 2.  The row's table t = seg[row] is one
+// of the T stacked tables; only the f32 estimate is written.  The bracket
+// counts the interior levels 1 .. ns[t] - 2 of table t — the reference's
+// masked compare over the union of levels, which never counts a row
+// against another table's entries or the 1.0 padding.  The clamp keeps a
+// NaN (as jnp.clip and torch.clamp do) so a non-finite row matches the
+// plain version; a table id outside [0, T) writes NaN over its row (its
+// norm is made NaN).  Noise is NoNoise for nearest rounding (xi >= 0.5).
+//
+// Its tables, in dynamic shared memory: the stacked [T, s_max] levels as
+// given, then kCellStride bytes a table, one per cell of [0, 1]: how many
+// of the table's interior levels lie at or below c / kCells.  The
+// bracket's ends and the next level are read from the levels themselves,
+// so the layout is compact: T * (4 * s_max + kCellStride) bytes, 24.7 KB
+// at the contract's T = 32 and s_max = 128, under the 48 KB a block has
+// without an opt-in; registers, not shared memory, bound the blocks an SM
+// holds at any T (3).  A table
+// whose open cells each hold at most one level (every uniform table) takes
+// the cell count plus one compare; any other (exponential tables) the
+// binary search, both per table.
 struct SymbolCounts {
   int v[kMaxTables];
 };
 
+constexpr int kCellStride = 260;  // kCells + 1 bytes, rounded up to a word
+
+// The binary search's first step over s interior levels: the largest power
+// of two <= s (0 when there are none).
+__device__ __forceinline__ int top_step(int s) {
+  return s > 0 ? 1 << (31 - __clz(s)) : 0;
+}
+
+// Interior levels (1 .. s) of a sorted table at or below x (below x with
+// STRICT); for staging the cell counts.
+template <bool STRICT>
+__device__ __forceinline__ int count_levels(const float* lv, int s, float x) {
+  int n = 0;
+  for (int step = top_step(s); step > 0; step >>= 1) {
+    const int j = n + step;
+    const float l = lv[min(j, s)];
+    n = j <= s && (STRICT ? l < x : l <= x) ? j : n;
+  }
+  return n;
+}
+
+// Q∘DEQ of this lane's share of chunk c (values v, draws r) under one table
+// lv with s interior levels, given the row's norm and safe norm: writes its
+// estimates.
+template <int VEC, bool STOCHASTIC>
+__device__ __forceinline__ void qdq_chunk(const float* v, const float* r, float norm, float safe,
+                                          const float* lv, const uint8_t* below, int s,
+                                          bool fine, float* out_row, int c, int ngroups,
+                                          int lane) {
+  float u[kLaneCols];
+  int tau[kLaneCols];
+#pragma unroll
+  for (int e = 0; e < kLaneCols; ++e) {
+    const float a = div_rn(fabsf(v[e]), safe);
+    u[e] = a > 1.0f ? 1.0f : (a < 0.0f ? 0.0f : a);  // keeps a NaN
+  }
+  if (fine) {
+#pragma unroll
+    for (int e = 0; e < kLaneCols; ++e) {
+      // a NaN u takes cell 0 (no level at or below it: tau = 0, as the
+      // compares give)
+      const int cell = __float2int_rz(fminf(fmaxf(__fmul_rn(u[e], float(kCells)), 0.0f),
+                                            float(kCells)));
+      const int b = below[cell];
+      tau[e] = min(b + (lv[b + 1] <= u[e] ? 1 : 0), s);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < kLaneCols; ++e) tau[e] = 0;
+    for (int step = top_step(s); step > 0; step >>= 1) {
+#pragma unroll
+      for (int e = 0; e < kLaneCols; ++e) {
+        const int j = tau[e] + step;
+        tau[e] = j <= s && lv[min(j, s)] <= u[e] ? j : tau[e];
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kLaneCols / VEC; ++i) {
+    const int g = group_of<VEC>(c, i, lane);
+    if (g >= ngroups) continue;
+    float o[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const int e = i * VEC + j;
+      const float lo = lv[tau[e]], hi = lv[tau[e] + 1];
+      const float xi = div_rn(__fsub_rn(u[e], lo), __fsub_rn(hi, lo));
+      const bool up = STOCHASTIC ? r[e] < xi : xi >= 0.5f;
+      const float q = up ? hi : lo;
+      o[j] = __fmul_rn(v[e] < 0.0f ? -q : q, norm);
+    }
+    store_vec<VEC>(out_row + g * VEC, o);
+  }
+}
+
+// At most 80 registers a thread, 3 blocks (24 warps) an SM: x's two chunks
+// stay in registers.  Left to itself nvcc holds the host-noise kernel to
+// 64 registers with a stack frame, ~11 % slower at the tinyllama buffer.
 template <int VEC, class Noise>
-__global__ void segment_qdq_kernel(const float* __restrict__ x,
-                                   const float* __restrict__ noise, unsigned long long seed,
-                                   const float* __restrict__ tables,
-                                   const int* __restrict__ seg, int T, int s_max,
-                                   SymbolCounts ns, int bucket, bool q_is_inf,
-                                   float* __restrict__ out) {
+__global__ void __launch_bounds__(kRowThreads, 3)
+segment_qdq_kernel(const float* __restrict__ x, const float* __restrict__ noise,
+                   unsigned long long seed, const float* __restrict__ tables,
+                   const int* __restrict__ seg, int T, int s_max, SymbolCounts ns, long long nb,
+                   int bucket, bool q_is_inf, float* __restrict__ out) {
   constexpr bool STOCHASTIC = !std::is_same<Noise, NoNoise>::value;
   extern __shared__ float4 s_dyn[];
-  float* s_tab = reinterpret_cast<float*>(s_dyn);
-  __shared__ float s_red[32];
-  for (int j = threadIdx.x; j < T * s_max; j += blockDim.x) s_tab[j] = tables[j];
+  float* s_lv = reinterpret_cast<float*>(s_dyn);
+  uint8_t* s_below = reinterpret_cast<uint8_t*>(s_lv + T * s_max);
+  __shared__ int s_interior[kMaxTables];
+  __shared__ unsigned s_coarse;  // bit t: table t has a cell holding two levels
+  for (int j = threadIdx.x; j < T * s_max; j += blockDim.x) s_lv[j] = tables[j];
+  if (threadIdx.x == 0) {
+    s_coarse = 0;
+#pragma unroll
+    for (int t = 0; t < kMaxTables; ++t)
+      if (t < T) s_interior[t] = ns.v[t] - 2;
+  }
   __syncthreads();
-  const long long row = blockIdx.x;
-  const float* x_row = x + row * bucket;
-  float* out_row = out + row * bucket;
-  const int t = seg[row];
-  const int ngroups = bucket / VEC;
-  if (t < 0 || t >= T) {
-    for (int g = threadIdx.x; g < ngroups; g += blockDim.x) {
-      float v[VEC];
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) v[e] = __int_as_float(0x7fc00000);
-      store_vec<VEC>(out_row + g * VEC, v);
-    }
-    return;
+  for (int i = threadIdx.x; i < T * (kCells + 1); i += blockDim.x) {
+    const int t = i / (kCells + 1), c = i - t * (kCells + 1);
+    const float* lv = s_lv + t * s_max;
+    const int s = s_interior[t];
+    const int le = count_levels<false>(lv, s, c * (1.0f / kCells));  // exact
+    const int lt = count_levels<true>(lv, s, (c + 1) * (1.0f / kCells));
+    s_below[t * kCellStride + c] = static_cast<uint8_t>(le);
+    if (lt - le > 1) atomicOr(&s_coarse, 1u << t);
   }
-  const float* lv = s_tab + t * s_max;
-  const int top = ns.v[t] - 1;  // interior levels are 1 .. top - 1
-  float part = 0.0f;
-  for (int g = threadIdx.x; g < ngroups; g += blockDim.x) {
-    float v[VEC];
-    load_vec<VEC>(x_row + g * VEC, v);
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      const float a = norm_term(v[e], q_is_inf);
-      part = q_is_inf ? nan_max(part, a) : __fadd_rn(part, a);
+  __syncthreads();  // the kernel's last barrier
+  const int lane = threadIdx.x & 31;
+  const int ngroups = bucket / VEC, per_chunk = 32 * (kLaneCols / VEC);
+  const int nchunks = (ngroups + per_chunk - 1) / per_chunk;
+  for (long long row = (long long)blockIdx.x * kWarpRows + (threadIdx.x >> 5); row < nb;
+       row += (long long)gridDim.x * kWarpRows) {
+    const float* x_row = x + row * bucket;
+    const Noise src = row_noise<Noise>(noise, seed, row, bucket);
+    const int t = seg[row];
+    float v[kLaneCols], w[kLaneCols], r[kLaneCols];  // x's chunks 0 and 1, a draw
+    load_chunk<VEC>(x_row, 0, ngroups, lane, v);
+    if constexpr (STOCHASTIC) draw_chunk<VEC>(src, 0, ngroups, lane, r);  // under x's loads
+    load_chunk<VEC>(x_row, 1, ngroups, lane, w);  // zeros past the row's end
+    float part = chunk_norm(w, q_is_inf, chunk_norm(v, q_is_inf, 0.0f));
+    for (int c = 2; c < nchunks; ++c) {  // a row wider than the registers: its norm
+      float z[kLaneCols];
+      load_chunk<VEC>(x_row, c, ngroups, lane, z);
+      part = chunk_norm(z, q_is_inf, part);
     }
-  }
-  const float norm = finish_norm(block_reduce(part, q_is_inf, s_red), q_is_inf);
-  const float safe = norm > 0.0f ? norm : 1.0f;
-  const Noise src = row_noise<Noise>(noise, seed, row, bucket);
-  for (int g = threadIdx.x; g < ngroups; g += blockDim.x) {
-    float v[VEC], r[VEC];
-    load_vec<VEC>(x_row + g * VEC, v);
-    if constexpr (STOCHASTIC) src.template get<VEC>(g * VEC, r);
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      float u = __fdiv_rn(fabsf(v[e]), safe);
-      u = u > 1.0f ? 1.0f : (u < 0.0f ? 0.0f : u);
-      int tau = 0;
-      for (int j = 1; j < top; ++j) tau += (u >= lv[j]) ? 1 : 0;
-      const float lo = lv[tau], hi = lv[tau + 1];
-      const float xi = __fdiv_rn(__fsub_rn(u, lo), __fsub_rn(hi, lo));
-      const bool up = STOCHASTIC ? (r[e] < xi) : (xi >= 0.5f);
-      const float q = lv[tau + (up ? 1 : 0)];
-      v[e] = __fmul_rn(v[e] < 0.0f ? -q : q, norm);
+    const bool bad = t < 0 || t >= T;  // no such table: NaN over the row
+    const int tt = bad ? 0 : t;
+    const float norm = bad ? __int_as_float(0x7fc00000)
+                           : finish_norm(warp_reduce(part, q_is_inf), q_is_inf);
+    const float safe = norm > 0.0f ? norm : 1.0f;
+    const float* lv = s_lv + tt * s_max;
+    const uint8_t* below = s_below + tt * kCellStride;
+    const int s = s_interior[tt];
+    const bool fine = !((s_coarse >> tt) & 1u);
+    float* out_row = out + row * bucket;
+    qdq_chunk<VEC, STOCHASTIC>(v, r, norm, safe, lv, below, s, fine, out_row, 0, ngroups, lane);
+    if (nchunks > 1) {  // chunk 1 from registers, its draw now
+      if constexpr (STOCHASTIC) draw_chunk<VEC>(src, 1, ngroups, lane, r);
+      qdq_chunk<VEC, STOCHASTIC>(w, r, norm, safe, lv, below, s, fine, out_row, 1, ngroups,
+                                 lane);
     }
-    store_vec<VEC>(out_row + g * VEC, v);
+    for (int c = 2; c < nchunks; ++c) {  // ... and a second pass over the rest, x from L1/L2
+      load_chunk<VEC>(x_row, c, ngroups, lane, v);
+      if constexpr (STOCHASTIC) draw_chunk<VEC>(src, c, ngroups, lane, r);
+      qdq_chunk<VEC, STOCHASTIC>(v, r, norm, safe, lv, below, s, fine, out_row, c, ngroups,
+                                 lane);
+    }
   }
 }
 
@@ -767,18 +847,22 @@ int pick_vec(int bucket, bool pack4) {
   return pack4 ? 0 : 1;
 }
 
-// The grid of kernels 1 and 2: enough blocks of kRowThreads to fill every
-// SM of the device at the kernel's occupancy, and no more than the rows
-// need; each warp then strides over the rows.
+// The grid of kernels 1, 2 and 5: enough blocks of kRowThreads to fill
+// every SM of the device at the kernel's occupancy (with its dynamic shared
+// memory, smem bytes a block), and no more than the rows need; each warp
+// then strides over the rows.  Rows that need no more blocks than the card
+// has SMs skip the occupancy query.
 template <class Kernel>
-cudaError_t row_grid(Kernel kernel, int device, long long nb, unsigned* blocks) {
+cudaError_t row_grid(Kernel kernel, int device, long long nb, size_t smem, unsigned* blocks) {
   int sms = 0, per_sm = 0;
   if (cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device))
     return e;
-  if (cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                                    kRowThreads, 0))
-    return e;
   const long long need = (nb + kWarpRows - 1) / kWarpRows;
+  if (need > sms) {
+    if (cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                                      kRowThreads, smem))
+      return e;
+  }
   const long long full = (long long)sms * (per_sm > 0 ? per_sm : 1);
   *blocks = static_cast<unsigned>(need < full ? need : full);
   return cudaSuccess;
@@ -844,7 +928,7 @@ int qx_quantize(const float* x, const float* noise, unsigned long long seed,
       constexpr bool P = decltype(p)::value;
       using N = typename decltype(n)::type;
       unsigned blocks = 0;
-      err = row_grid(quantize_kernel<V, P, N>, device, nb, &blocks);
+      err = row_grid(quantize_kernel<V, P, N>, device, nb, 0, &blocks);
       if (err == cudaSuccess)
         quantize_kernel<V, P, N><<<blocks, kRowThreads, 0, s>>>(
             x, noise, seed, levels, num_symbols, nb, bucket, q_is_inf != 0, out, norms);
@@ -909,7 +993,7 @@ int qx_dequant_reduce_requantize(const int8_t* idx, const float* norms,
       constexpr bool P = decltype(p)::value;
       using N = typename decltype(n)::type;
       unsigned blocks = 0;
-      err = row_grid(dequant_reduce_requantize_kernel<V, P, N>, device, nb, &blocks);
+      err = row_grid(dequant_reduce_requantize_kernel<V, P, N>, device, nb, 0, &blocks);
       if (err == cudaSuccess)
         dequant_reduce_requantize_kernel<V, P, N><<<blocks, kRowThreads, 0, s>>>(
             idx, norms, noise, seed, levels, num_symbols, K, nb, bucket, q_is_inf != 0, inv_k,
@@ -925,8 +1009,9 @@ int qx_segment_qdq(const float* x, const float* noise, unsigned long long seed,
                    const int* num_symbols, long long nb, int bucket, int q_is_inf,
                    int stochastic, float* out, int device, void* stream) {
   const int vec = pick_vec(bucket, false);
-  // the stacked tables are staged in dynamic shared memory (48 KB default cap)
-  const size_t smem = sizeof(float) * (size_t)T * (size_t)s_max;
+  // the tables and their cell counts, in dynamic shared memory (24.7 KB at
+  // most: under the 48 KB default cap)
+  const size_t smem = (size_t)T * (sizeof(float) * (size_t)s_max + kCellStride);
   if (T < 1 || T > kMaxTables || s_max < 2 || s_max > kMaxSymbols || nb < 0 ||
       nb > 0x7fffffffLL || bucket <= 0 || smem > 48 * 1024 ||
       (stochastic ? bad_noise(noise, device_prng) : device_prng != 0))
@@ -939,21 +1024,22 @@ int qx_segment_qdq(const float* x, const float* noise, unsigned long long seed,
   if (nb == 0) return cudaSuccess;
   if (cudaError_t e = cudaSetDevice(device)) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = threads_for(bucket, vec);
-  auto launch = [&](auto n) {
-    using Noise = typename decltype(n)::type;
-    if (vec == 4) {
-      segment_qdq_kernel<4, Noise><<<(unsigned)nb, threads, smem, s>>>(
-          x, noise, seed, tables, seg, T, s_max, ns, bucket, q_is_inf != 0, out);
-    } else if (vec == 2) {
-      segment_qdq_kernel<2, Noise><<<(unsigned)nb, threads, smem, s>>>(
-          x, noise, seed, tables, seg, T, s_max, ns, bucket, q_is_inf != 0, out);
-    } else {
-      segment_qdq_kernel<1, Noise><<<(unsigned)nb, threads, smem, s>>>(
-          x, noise, seed, tables, seg, T, s_max, ns, bucket, q_is_inf != 0, out);
-    }
+  cudaError_t err = cudaSuccess;
+  auto launch = [&](auto kernel) {
+    unsigned blocks = 0;
+    err = row_grid(kernel, device, nb, smem, &blocks);
+    if (err == cudaSuccess)
+      kernel<<<blocks, kRowThreads, smem, s>>>(x, noise, seed, tables, seg, T, s_max, ns, nb,
+                                               bucket, q_is_inf != 0, out);
   };
-  if (stochastic) with_noise(device_prng != 0, launch); else launch(Tag<NoNoise>{});
+  auto with_vec = [&](auto n) {
+    using N = typename decltype(n)::type;
+    if (vec == 4) launch(segment_qdq_kernel<4, N>);
+    else if (vec == 2) launch(segment_qdq_kernel<2, N>);
+    else launch(segment_qdq_kernel<1, N>);
+  };
+  if (stochastic) with_noise(device_prng != 0, with_vec); else with_vec(Tag<NoNoise>{});
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 

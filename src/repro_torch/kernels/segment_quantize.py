@@ -10,19 +10,26 @@ stochastic (``r < xi``) or nearest (``xi >= 0.5``) rounding, and the
 dequantized value ``sign * level * norm``.  The indices never leave
 registers; only the f32 estimate is written.
 
-Bound on the H100: device-memory traffic.  It reads x and the noise and
-writes the estimate, 12 B per coordinate (8 B with nearest rounding); at
-the tinyllama-1.1b planned buffer (1,100,048,384 coordinates) that is
-13.20 GB, 3.94 ms at 3.35 TB/s.  The design
-(``csrc/exchange_kernels.cu::segment_qdq_kernel``) gives each bucket row
-one thread block, stages the stacked tables in shared memory, reads x and
-the noise with 16-byte loads (the norm pass re-reads the row from L1/L2,
-not HBM) and writes the row once.
+Bound on the H100: device-memory traffic, and instruction issue about
+as much.  It reads x and the noise and writes the estimate, 12 B per
+coordinate (8 B with nearest rounding); at the tinyllama-1.1b planned
+buffer (1,100,048,384 coordinates) that is 13.20 GB, 3.94 ms at 3.35
+TB/s.  The design (``csrc/exchange_kernels.cu::segment_qdq_kernel``) is
+kernels 1 and 2's: one warp per bucket row, 8 rows a block, a grid that
+fills the card once (each warp strides over the rows), a 512 row of x
+held whole in registers (two 256-wide chunks; at most 80 registers, 24
+warps an SM), the norm by warp shuffles, the first chunk's noise loaded
+(or drawn) with x before the norm, the second's after the first chunk is
+written, and the bracket from a per-table 257-cell count of
+[0, 1] plus one compare (a binary search for a table with two levels in
+one cell).  The stacked tables and their cell counts are staged once per
+block in shared memory.
 
 Device-PRNG variant (``seed=`` in place of ``noise``; TPU kernel B5 at
 its call site ``repro/kernels/segment_quantize.py:50``): the noise is
 drawn with Philox4x32-10 in registers, 8 B per coordinate moved instead
-of 12 (8.81 GB at the tinyllama-1.1b buffer), still bytes-bound.
+of 12 (8.81 GB at the tinyllama-1.1b buffer); the draw's integer work
+makes it issue-bound.
 
 CPU tensors go to the plain version :func:`quantize_dequantize_segments_plain`
 (same arithmetic, bit-identical); CUDA tensors launch the kernel or raise.
@@ -31,6 +38,7 @@ CPU tensors go to the plain version :func:`quantize_dequantize_segments_plain`
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -75,9 +83,15 @@ def quantize_dequantize_segments(x2d: torch.Tensor, noise, tables: torch.Tensor,
     tab = cuda.prepare(tables, torch.float32, dev)
     seg = cuda.prepare(seg_ids, torch.int32, dev)
     out = torch.empty((nb, bucket), dtype=torch.float32, device=dev)
-    counts = (ctypes.c_int * T)(*num_symbols)
     cuda.call("qx_segment_qdq", "quantize_dequantize_segments" + variant, dev, x.data_ptr(),
               None if r is None else r.data_ptr(), int(seed or 0), seed is not None,
-              tab.data_ptr(), seg.data_ptr(), T, s_max, counts, nb, bucket, int(q_is_inf),
-              int(stochastic), out.data_ptr())
+              tab.data_ptr(), seg.data_ptr(), T, s_max, _counts(num_symbols), nb, bucket,
+              int(q_is_inf), int(stochastic), out.data_ptr())
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _counts(num_symbols: tuple):
+    """The launch's ``int[T]`` symbol counts, built once per tuple (the
+    kernel copies them; nothing writes them)."""
+    return (ctypes.c_int * len(num_symbols))(*num_symbols)

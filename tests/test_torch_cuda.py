@@ -129,37 +129,103 @@ def test_quantize_kernels_with_exponential_levels(dev, s, bits, q_is_inf):
          ref.dequant_reduce_requantize_blocks_plain(P, N, lv, r, **kw))
 
 
-@pytest.mark.parametrize("stochastic", [True, False])
-@pytest.mark.parametrize("q_is_inf", [True, False])
-@pytest.mark.parametrize("T", [1, 2, 3])
-def test_segment_kernel_matches_plain_version(dev, T, q_is_inf, stochastic):
-    """Kernel 5 over T stacked tables with mixed symbol counts, an odd row
-    count, zero rows and a NaN row: bit-equal for q = inf, rtol 1e-6 for
-    q = 2 (the L^2 sum's order)."""
+def segment_tables(name, dev):
+    """Kernel 5's stacked level tables of one case: 17, 7 and 5 symbols
+    (T = 1, 2, 3); 32 tables of 2-128 symbols, uniform (cell lookup) and
+    exponential (binary search), the contract's maximum T; or a 128-symbol
+    exponential table beside a 128-symbol uniform one."""
     from repro_torch.core.exchange_plan import stack_level_tables
     from repro_torch.core.quantization import exponential_levels
 
+    if name == "T32":
+        return stack_level_tables(
+            [uniform_levels(s, dev) for s in (0, 1, 2, 3, 5, 7, 10, 15, 20, 31, 40, 63, 64,
+                                              100, 125, 126)]
+            + [exponential_levels(s, dev) for s in (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 12, 15, 20,
+                                                    30, 60, 126)])
+    if name == "exp128":
+        return stack_level_tables([exponential_levels(126, dev), uniform_levels(126, dev)])
+    T = {"T1": 1, "T2": 2}.get(name, 3)
+    return stack_level_tables([uniform_levels(15, dev), uniform_levels(5, dev),
+                               exponential_levels(3, dev)][:T])
+
+
+# kernel 5's cases: (tables, rows, bucket); rows "wrap" strides every warp
+# over several rows; "bad_seg" gives rows a table id outside [0, T)
+SEGMENT_CASES = {
+    "T1": ("T1", 37, 512), "T2": ("T2", 37, 512), "T3": ("T3", 37, 512),
+    "T32": ("T32", 101, 512), "exp128": ("exp128", 37, 512),
+    "bucket1024": ("T3", 37, 1024), "bucket1023": ("T3", 37, 1023),
+    "bucket130": ("T3", 37, 130), "wrap": ("T2", "wrap", 512), "bad_seg": ("T3", 37, 512),
+}
+
+
+def rounding_ties(got, want, x, r, tables, seg, ns, stochastic):
+    """The q = 2 coordinates where kernel 5 and its plain version differ
+    beyond rtol 1e-6; each must be a rounding tie that the L^2 norm's last
+    bit decides (the two sum in different orders): the plain version's xi
+    within 1e-5 of the draw (of 0.5 when rounding to nearest), the
+    kernel's value the other end of its bracket.  Returns their mask."""
+    import math
+
+    flips = ~torch.isclose(got.nan_to_num(), want.nan_to_num(), rtol=1e-6, atol=0)
+    norms = ref.norm_rows(x, False)
+    for i, j in flips.nonzero().tolist():
+        t, norm = int(seg[i]), float(norms[i])
+        lv = tables[t]
+        u = min(abs(float(x[i, j])) / (norm if norm > 0 else 1.0), 1.0)
+        tau = int((lv[1:ns[t] - 1] <= u).sum())
+        lo, hi = float(lv[tau]), float(lv[tau + 1])
+        edge = float(r[i, j]) if stochastic else 0.5
+        assert abs((u - lo) / (hi - lo) - edge) <= 1e-5
+        assert any(math.isclose(abs(float(got[i, j])), e * norm, rel_tol=1e-5) for e in (lo, hi))
+    return flips
+
+
+@pytest.mark.parametrize("rounding", ["host noise", "device PRNG", "nearest"])
+@pytest.mark.parametrize("q_is_inf", [True, False])
+@pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
+def test_segment_kernel_matches_plain_version(dev, case, q_is_inf, rounding):
+    """Kernel 5 over stacked tables with mixed symbol counts, zero rows and a
+    NaN row, with host noise, the device PRNG (``seed=``) and nearest
+    rounding: bit-equal for q = inf, rtol 1e-6 for q = 2 (the L^2 sum's
+    order; over the ``wrap`` case's 4 M coordinates a rounding tie may go
+    the other way, see ``rounding_ties``).  A row whose table id lies
+    outside [0, T) is NaN throughout."""
+    tab_name, rows, bucket = SEGMENT_CASES[case]
     gen = torch.Generator(device=dev)
-    gen.manual_seed(T * 4 + 2 * q_is_inf + stochastic)
-    nb, bucket = 37, 512
-    tables, ns = stack_level_tables([uniform_levels(15, dev), uniform_levels(5, dev),
-                                     exponential_levels(3, dev)][:T])
+    gen.manual_seed(sorted(SEGMENT_CASES).index(case) * 8 + 2 * q_is_inf + len(rounding))
+    nb = rows_for(rows, dev)
+    tables, ns = segment_tables(tab_name, dev)
+    T = len(ns)
     x = torch.randn((nb, bucket), generator=gen, device=dev) * 3
     x[[0, 17]] = 0
-    x[5, 9] = float("nan")
+    x[5, bucket // 2] = float("nan")
     r = torch.rand((nb, bucket), generator=gen, device=dev)
     seg = torch.randint(0, T, (nb,), generator=gen, device=dev, dtype=torch.int32)
+    bad = [3, 20] if case == "bad_seg" else []
+    seg[bad] = torch.tensor([-1, T], dtype=torch.int32, device=dev)[:len(bad)]
+    stochastic, seed = rounding != "nearest", None
+    if rounding == "device PRNG":
+        r, seed = None, 0x0123456789ABCDEF
     kw = dict(num_symbols=ns, q_is_inf=q_is_inf, stochastic=stochastic)
-    before = cuda.launch_counts()["quantize_dequantize_segments"]
-    got = quantize_dequantize_segments(x, r if stochastic else None, tables, seg, **kw)
-    want = ref.quantize_dequantize_segments_plain(x, r, tables, seg, **kw)
+    counter = "quantize_dequantize_segments" + ("/prng" if seed is not None else "")
+    before = cuda.launch_counts()[counter]
+    got = quantize_dequantize_segments(x, r, tables, seg, seed=seed, **kw)
+    want = ref.quantize_dequantize_segments_plain(x, r, tables, seg.clamp(0, T - 1), seed=seed,
+                                                  **kw)
+    want[bad] = float("nan")
     torch.cuda.synchronize()
-    assert cuda.launch_counts()["quantize_dequantize_segments"] == before + 1
+    assert cuda.launch_counts()[counter] == before + 1
+    assert bool(got[5].isnan().all()) and bool((got[[0, 17]] == 0).all())
     if q_is_inf:
-        assert torch.equal(got.isnan(), want.isnan())
-        assert torch.equal(got.nan_to_num(), want.nan_to_num())
+        assert same(got, want)
     else:
-        assert torch.allclose(got, want, rtol=1e-6, atol=0, equal_nan=True)
+        if case == "wrap":
+            draw = r if seed is None else ref.philox_uniform(seed, 0, nb, bucket, dev)
+            flips = rounding_ties(got, want, x, draw, tables, seg, ns, stochastic)
+            got, want = got.masked_fill(flips, 0.0), want.masked_fill(flips, 0.0)
+        assert close(got, want)
 
 
 def test_philox_known_answer_vectors_on_the_card(dev):

@@ -17,6 +17,7 @@ against the JAX reference, on the CPU.
   reference keys each class with ``fold_in(key, class)``.
 """
 
+import functools
 import math
 
 import jax
@@ -173,3 +174,137 @@ def test_fused_compress_matches_reference(name, use_pallas):
         torch.from_numpy(np.asarray(t)) for t in jtables), noise2)
     np.testing.assert_array_equal(both[0].numpy(), got.numpy())
     np.testing.assert_array_equal(both[1].numpy(), got.numpy())
+
+
+# ---------------------------------------------------------------------------
+# The precondition of kernel 5's bracket rule, on every table set the
+# port's paths stack
+# ---------------------------------------------------------------------------
+
+CELLS = 256  # kernel 5's cells of [0, 1] (kCells)
+
+
+def _count_levels(lv, s, x, strict=False):
+    """The kernel's ``count_levels``: interior levels 1 .. s of a table at
+    or below x (below with ``strict``), by binary search from the largest
+    power of two <= s; vectorized over x (f32)."""
+    n = np.zeros(x.shape, dtype=np.int64)
+    step = 1 << (s.bit_length() - 1) if s > 0 else 0
+    while step:
+        j = n + step
+        lev = lv[np.minimum(j, s)]
+        hit = (j <= s) & ((lev < x) if strict else (lev <= x))
+        n = np.where(hit, j, n)
+        step >>= 1
+    return n
+
+
+def _kernel_bracket(lv, ns, u):
+    """Kernel 5's bracket tau of u (f32) in one table (``lv``, ``ns``
+    symbols), as the kernel stages and reads it: each cell c of [0, 1]
+    keeps how many interior levels lie at or below c / 256; a table whose
+    open cells each hold at most one level takes that count plus one
+    compare, any other the binary search.  Returns (tau, fine)."""
+    s = ns - 2
+    c = np.arange(CELLS + 1, dtype=np.float32)
+    edge = np.float32(1.0 / CELLS)
+    below = _count_levels(lv, s, c * edge)
+    fine = not (_count_levels(lv, s, (c + 1) * edge, strict=True) - below > 1).any()
+    if not fine:
+        return _count_levels(lv, s, u), fine
+    cell = np.minimum(np.maximum(u * np.float32(CELLS), 0), CELLS).astype(np.int64)  # u*256 exact
+    b = below[cell]
+    return np.minimum(b + (lv[b + 1] <= u), s), fine
+
+
+def _probe_points(lv, ns):
+    """u = 0, 1, on each level and each cell edge, and one f32 step to
+    either side of each (clamped to [0, 1], as the kernel clamps u)."""
+    edges = np.arange(CELLS + 1, dtype=np.float32) / np.float32(CELLS)
+    pts = np.concatenate([np.float32([0.0, 1.0]), lv[:ns], edges])
+    pts = np.concatenate([pts, np.nextafter(pts, np.float32(-1)),
+                          np.nextafter(pts, np.float32(2))])
+    return np.clip(pts, 0.0, 1.0).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _port_table_sets():
+    """(name, stacked tables, symbol counts) of every set the port stacks:
+    the GAN testbed's kernel-5 calls (uq8, uq4, the layerwise pair, and uq8
+    with the device PRNG), recorded from ``compress_tree`` on a WGAN-shaped
+    tree; uniform and exponential tables of 3-128 symbols; and 32 mixed
+    tables of 2-128 symbols stacked at once."""
+    import dataclasses
+
+    from repro_torch.core.quantization import exponential_levels, uniform_levels
+    from repro_torch.core.tree import tree_map
+    from repro_torch.gan import wgan
+    from repro_torch.launch import train_gan
+
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    model = wgan.WGAN(wgan.GANConfig(), gen, "cpu")
+    wrapper, sets = tplan.quantize_dequantize_segments, []
+
+    def recorder(x2d, noise, tables, seg_ids, **kw):
+        sets.append((arm, tables.numpy(), kw["num_symbols"]))
+        return wrapper(x2d, noise, tables, seg_ids, **kw)
+
+    tplan.quantize_dequantize_segments = recorder
+    try:
+        for arm in ("uq8", "uq4", "layerwise", "uq8-prng"):
+            cfg = train_gan.arm_exchange(arm.split("-")[0])
+            if arm.endswith("prng"):
+                cfg = dataclasses.replace(cfg, use_device_prng=True)
+            grads = tree_map(lambda p: torch.randn((3, *p.shape), generator=gen),
+                             model.param_tree())
+            noise = ReplayNoise([7] if arm.endswith("prng") else [
+                np.random.RandomState(k).rand(19, 512).astype(np.float32) for k in range(3)])
+            wgan.GANConfig(exchange=cfg).make_exchange().compress_tree(grads, noise, workers=True)
+    finally:
+        tplan.quantize_dequantize_segments = wrapper
+    for s in range(1, 127):
+        for make in (uniform_levels, exponential_levels):
+            stacked, ns = tplan.stack_level_tables([make(s, "cpu")])
+            sets.append((f"{make.__name__}({s})", stacked.numpy(), ns))
+    mixed = ([uniform_levels(s, "cpu") for s in (0, 1, 2, 3, 5, 7, 10, 15, 20, 31, 40, 63, 64,
+                                                 100, 125, 126)]
+             + [exponential_levels(s, "cpu") for s in (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 12, 15,
+                                                       20, 30, 60, 126)])
+    stacked, ns = tplan.stack_level_tables(mixed)
+    sets.append(("32 mixed", stacked.numpy(), ns))
+    return sets
+
+
+@pytest.mark.parametrize("which", ["gan", "uniform", "exponential", "32 mixed"])
+def test_kernel5_bracket_rule_precondition(which):
+    """Kernel 5 finds the bracket tau = #{1 <= j <= ns - 2 : lv[j] <= u} by
+    a cell count plus one compare (or a binary search), which equals the
+    plain version's compare count only on a sorted table whose interior
+    levels sit below the 1.0 padding.  On every table set the port's paths
+    stack: each table is strictly increasing from 0 to 1 over its live
+    symbols, padded with 1.0 past them, and a model of the kernel's rule
+    gives the compare count at u = 0, 1, on each level and cell edge and
+    one step to either side."""
+    sets = [s for s in _port_table_sets()
+            if {"gan": lambda n: n.startswith("uq") or n == "layerwise",
+                "uniform": lambda n: n.startswith("uniform"),
+                "exponential": lambda n: n.startswith("exponential"),
+                "32 mixed": lambda n: n == "32 mixed"}[which](s[0])]
+    if which == "gan":
+        assert [s[0] for s in sets] == ["uq8", "uq4", "layerwise", "uq8-prng"]
+        assert [s[2] for s in sets] == [(17,), (7,), (7, 17), (17,)]
+    routes = set()
+    for name, stacked, num_symbols in sets:
+        for t, ns in enumerate(num_symbols):
+            lv = stacked[t]
+            assert lv.dtype == np.float32 and lv[0] == 0.0 and lv[ns - 1] == 1.0, name
+            assert (np.diff(lv[:ns]) > 0).all(), f"{name} table {t} is not sorted"
+            assert (lv[ns:] == 1.0).all() and (lv[1:ns - 1] < 1.0).all(), name
+            u = _probe_points(lv, ns)
+            want = (lv[None, 1:ns - 1] <= u[:, None]).sum(1)  # the plain version's compares
+            got, fine = _kernel_bracket(lv, ns, u)
+            np.testing.assert_array_equal(got, want, err_msg=f"{name} table {t}")
+            routes.add(fine)
+    if which in ("exponential", "32 mixed"):
+        assert routes == {True, False}  # both the cell lookup and the binary search ran
