@@ -50,10 +50,24 @@ imports only ``repro_torch`` (from ``src/`` beside this file) and:
       gather exchange, then 2 ``extra_adam`` steps with the layerwise
       int4 / int8 two_phase exchange, batch 4 x seq 512 on the one card
       (K = 1).  Every kernel of the path must have launched, every loss
-      be finite and ``wire_bytes`` equal the analytic buffer sizes.  A
+      be finite, ``wire_bytes`` equal the analytic buffer sizes and the
+      qgenx runs' ``coded_bits_est`` lie in (0, 8 x the payload bytes]
+      a gradient exchange; peaks are printed beside those of commit
+      5a288aa, before the step computed ``coded_bits_est``.  A
       reduced-size run on the card is then held against the same run on
       the CPU (same weights, exact exchange; int8 with host noise and
       with the device PRNG from the same seeds);
+   c. the local-update regime at the same width: 4 qgenx ``de`` int8
+      two_phase steps with ``sync_every=2``, ``recenter_every=4`` and a
+      checkpoint every 2 steps, the wire recorder on: ``wire_bytes`` 0
+      on local steps and the analytic bytes plus the 16,384 probe bytes
+      on sync steps (and the recorder's total), ``param_drift`` 0,
+      ``coded_bits_est`` within its bound, kernels 1-3 once per
+      exchange; then the step-2 checkpoint restored on the card (every
+      leaf crc-equal) and a second run resumed from it (its losses held
+      to the first run's), with each save's and restore's bytes and
+      seconds, the cost of ``coded_bits_tree``, step times and peak
+      memory printed (``local_update_path``);
    b. the WGAN-GP testbed (``repro_torch.launch.train_gan.run``, the
       paper's Section 5 at the reference's width: K = 3 workers, batch
       256 each, hidden 64) for 300 ExtraAdam steps in each of the fp32,
@@ -127,6 +141,10 @@ GAN_STEPS = 300
 SM_WARPS, SM_BLOCKS, SM_REGS, SM_SMEM = 64, 32, 65536, 233472
 ROW_KERNEL_THREADS = 256  # kernels 1 and 2: 8 warps a block, one row each
 PRNG_SEED = 0x9E3779B97F4A7C15  # the device-PRNG seed of the parity and timing phases
+# phase 4a's peaks of device memory at commit 5a288aa, before the step
+# computed coded_bits_est (H100 80GB HBM3, 700.00 W)
+EARLIER_PEAKS = {"int8": 50_310_774_272, "int8-prng": 50_310_774_272,
+              "int4": 49_786_117_632, "layerwise": 48_860_888_064}
 
 
 def exchanged_coords(cfg) -> int:
@@ -788,10 +806,15 @@ def train_path(torch, batch: int, seq: int, shapes: list) -> dict:
         stray = [k for k in (host_only if prng else PRNG_KERNELS) if counts[k]]
         if stray:
             fail(f"LM run {tag} launched {stray}: {counts}")
+        coded = out["coded_bits_est"]
+        if ex_cfg.compressor == "qgenx" and not all(0 < c <= 8 * calls * compress_bytes(
+                ex, shapes) for c in coded):
+            fail(f"coded_bits_est {coded} outside (0, 8 x the payload bytes] in {tag}")
         by_run[tag] = {"counts": counts, "step_s": out["step_s"], "peak_bytes": peak}
         log(f"  {spec['optimizer']} {tag} {spec['compress_mode']}: "
-            f"loss={out['loss']} wire_bytes={out['wire_bytes'][0]:.0f} "
-            f"step_s={out['step_s']} peak_bytes={peak} launches={counts}")
+            f"loss={out['loss']} wire_bytes={out['wire_bytes'][0]:.0f} coded_bits_est={coded} "
+            f"step_s={out['step_s']} peak_bytes={peak} (5a288aa: {EARLIER_PEAKS[tag]}, "
+            f"{(peak - EARLIER_PEAKS[tag]) / 2**30:+.3f} GiB) launches={counts}")
     lm_kernels = [k for k in cuda.KERNELS
                   if k not in ("quantize_dequantize_segments", "philox")
                   and k != "quantize_dequantize_segments/prng"]
@@ -803,6 +826,197 @@ def train_path(torch, batch: int, seq: int, shapes: list) -> dict:
         f"{prng['step_s']}; peak device memory {host['peak_bytes']} vs {prng['peak_bytes']} "
         f"bytes ({(host['peak_bytes'] - prng['peak_bytes']) / 1e9:.3f} GB less)")
     return by_run
+
+
+def compress_bytes(ex, shapes) -> float:
+    """``compress_wire_bytes_tree`` of a gradient with these leaf shapes:
+    the payload bytes one worker's fixed-width broadcast pays for."""
+    return ex.plan_for(shapes, "compress", 1).compress_payload_bytes()
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the local-update regime, the coded-bits metric and checkpoints
+# ---------------------------------------------------------------------------
+
+
+LOCAL_STEPS, SYNC_EVERY, RECENTER_EVERY, CKPT_EVERY = 4, 2, 4, 2
+RESUME_LOSS_RTOL = 1e-6  # see local_update_path
+
+
+def _leaf_crcs(trees) -> dict:
+    """crc32 of each leaf of each named tree, as a checkpoint records it."""
+    import zlib
+
+    from repro_torch.checkpoint import checkpointing
+
+    return {name: {k: zlib.crc32(checkpointing._to_host(v).tobytes())
+                   for k, v in checkpointing._flatten_with_paths(tree).items()}
+            for name, tree in trees.items()}
+
+
+def _leaves(torch, cfg) -> list:
+    """(shape, dtype) of each parameter leaf at this config, in JAX order,
+    from a model built once on the card."""
+    from repro_torch.models.model import build
+
+    model = build(cfg, device="cuda")
+    out = [(tuple(p.shape), p.dtype) for p in model.param_leaves()]
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def local_update_path(torch, batch: int, seq: int) -> dict:
+    """Phase 4c: tinyllama-1.1b at full width (bf16 layers, K = 1) through
+    ``run()``: qgenx ``de``, int8 two_phase, host noise, ``sync_every=2``,
+    ``recenter_every=4``, 4 steps, a checkpoint every 2 steps into
+    ``build/chip_smoke_ckpt`` (deleted afterwards), with the wire recorder
+    on.  Holds: ``wire_bytes`` 0 on the local steps (0 and 2) and, on the
+    sync steps, the analytic bytes of the exchanges that ran (2 at step 1;
+    2 and the re-centering one at step 3) plus the 16,384 probe bytes,
+    the run's total equal to the recorder's; ``param_drift`` exactly 0;
+    ``coded_bits_est`` 0 on local steps and in (0, 2 x 8 x the payload
+    bytes] on sync steps; kernels 1-3 launched once per exchange.  Then
+    restores the step-2 checkpoint into a fresh model on the card (every
+    leaf crc-equal to the saved one) and resumes a second run there: its
+    steps 2-3 losses within rtol ``RESUME_LOSS_RTOL`` of the first run's:
+    the same state, batch and noise, but the embedding's backward
+    (``index_put_`` with accumulate) carries no determinism promise on
+    CUDA, so bit-equality is printed, not required.  Prints each save's and restore's bytes
+    and seconds, the cost of one ``coded_bits_tree`` at this gradient,
+    step times and peak memory.  Returns the first run's launch counts."""
+    import shutil
+
+    from repro_torch.checkpoint import checkpointing
+    from repro_torch.configs import get_config
+    from repro_torch.core.exchange import make_exchange, wire_trace_start, wire_trace_stop
+    from repro_torch.core.exchange_plan import size_of
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.train import build_exchange_config, restore_checkpoint, run, \
+        state_trees
+    from repro_torch.models.model import build
+    from repro_torch.optim import optimizers as opt
+    from repro_torch.optim.optimizers import OptimizerConfig
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    ckpt_dir = os.path.join(here, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    os.makedirs(ckpt_dir)
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), dtype="bfloat16")
+    free = shutil.disk_usage(ckpt_dir).free
+    # at most 12 bytes a coordinate (f32 params, anchor and dual
+    # accumulator); two checkpoints on disk at once and a write's margin
+    need = lambda c: 2.5 * 12 * exchanged_coords(c)  # noqa: E731
+    while need(cfg) > free and cfg.num_layers > 1:
+        cfg = dataclasses.replace(cfg, num_layers=cfg.num_layers - 1)
+    if cfg.num_layers < get_config("tinyllama-1.1b").num_layers:
+        log(f"  phase 4c: depth cut to {cfg.num_layers} layers: {free} bytes free on the "
+            f"checkout's disk")
+    if need(cfg) > free:
+        fail(f"phase 4c: {free} bytes free, two checkpoints need {need(cfg) / 1.25:.0f}")
+    leaves = _leaves(torch, cfg)
+    shapes = [s for s, _ in leaves]
+    args = _train_args(arch="tinyllama-1.1b", dtype="bfloat16", batch=batch, seq=seq,
+                       device="cuda", optimizer="qgenx", method="de", compression="int8",
+                       compress_mode="two_phase", steps=LOCAL_STEPS, sync_every=SYNC_EVERY,
+                       recenter_every=RECENTER_EVERY, checkpoint_dir=ckpt_dir,
+                       checkpoint_every=CKPT_EVERY)
+    ex = make_exchange(build_exchange_config(args))
+    sizes = [size_of(s) for s in shapes]
+    per_call = ex.compressor.wire_bytes_tree(sizes, 1, ex.cfg)
+    probe = 4.0 * min(ex.cfg.drift_probe, sum(sizes))
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launch_counts()
+        wire_trace_start()
+        first = run(args, log=lambda m: log(f"  {m}"), config=cfg)
+        trace = wire_trace_stop()
+        counts = cuda.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        calls = [0, 2, 0, 3]  # exchanges per step: sync at 1 and 3, re-center at 3
+        want_wire = [c * per_call + (probe if c else 0.0) for c in calls]
+        if first["wire_bytes"] != want_wire:
+            fail(f"phase 4c wire_bytes {first['wire_bytes']} != analytic {want_wire}")
+        if sum(b for _, b in trace) != sum(first["wire_bytes"]):
+            fail(f"phase 4c: the recorder's {sum(b for _, b in trace)} bytes != "
+                 f"wire_bytes {sum(first['wire_bytes'])}")
+        if [n for n, _ in trace].count("drift_probe") != 2:
+            fail(f"phase 4c: the recorder saw {[n for n, _ in trace]}")
+        if any(d != 0.0 for d in first["param_drift"]):
+            fail(f"phase 4c param_drift {first['param_drift']} is not 0 at K = 1")
+        bound = 2 * 8 * compress_bytes(ex, shapes)
+        coded = first["coded_bits_est"]
+        if coded[0] or coded[2] or not all(0 < coded[t] <= bound for t in (1, 3)):
+            fail(f"phase 4c coded_bits_est {coded} (bound {bound} on sync steps)")
+        if not all(math.isfinite(v) for v in first["loss"]):
+            fail(f"phase 4c: non-finite loss {first['loss']}")
+        exchanges = sum(calls)
+        want_counts = {k: (exchanges if k in ("quantize_blocks",
+                                              "dequant_reduce_requantize_blocks",
+                                              "dequantize_blocks") else 0)
+                       for k in cuda.KERNELS}
+        if counts != want_counts:
+            fail(f"phase 4c launches {counts} != {want_counts}")
+        for sv in first["saves"]:
+            log(f"  phase 4c save: step {sv['step']}, {sv['bytes']} bytes, "
+                f"{sv['seconds']:.2f} s")
+        log(f"  phase 4c: loss={first['loss']} wire_bytes={first['wire_bytes']} "
+            f"param_drift={first['param_drift']} coded_bits_est={coded} "
+            f"step_s={first['step_s']} peak_bytes={peak} launches={counts}")
+
+        # the step-2 checkpoint, restored into a fresh model on the card
+        for name in ("ckpt_4.npz", "ckpt_4.meta"):
+            os.remove(os.path.join(ckpt_dir, name))
+        with open(os.path.join(ckpt_dir, "latest"), "w") as f:
+            f.write(str(CKPT_EVERY))
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = build(cfg, seed=args.seed + 1, device="cuda")
+        opt_cfg = OptimizerConfig(name="qgenx", method="de", gamma_scale=args.gamma_scale)
+        opt_state = opt.init_state(opt_cfg, model.param_leaves())
+        opt_state, ex_state, info = restore_checkpoint(
+            args, model, opt_state, ex.init_state("cuda"), torch.device("cuda"),
+            log=lambda m: log(f"  {m}"))
+        meta = checkpointing.read_meta(ckpt_dir, CKPT_EVERY)
+        got = _leaf_crcs(state_trees(model, opt_state, ex_state))
+        bad = [(n, k) for n in got for k in got[n] if got[n][k] != meta["trees"][n]["crc32"][k]]
+        if bad or sorted(got) != sorted(meta["trees"]):
+            fail(f"phase 4c: restored leaves differ from the checkpoint's: {bad[:5]}")
+        log(f"  phase 4c restore: step {info['step']}, {info['bytes']} bytes, "
+            f"{info['seconds']:.2f} s; {sum(len(v) for v in got.values())} leaves crc-equal")
+        del model, opt_state, ex_state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # resume: steps 2-3 again from the step-2 checkpoint
+        second = run(args, log=lambda m: log(f"  {m}"), config=cfg)
+        if second["start_step"] != CKPT_EVERY:
+            fail(f"phase 4c: the second run started at {second['start_step']}")
+        log(f"  phase 4c resume restore: {second['restored']}")
+        a, b = first["loss"][CKPT_EVERY:], second["loss"]
+        worst = max(abs(x - y) / abs(x) for x, y in zip(a, b))
+        if len(b) != len(a) or worst > RESUME_LOSS_RTOL:
+            fail(f"phase 4c: resumed losses {b} vs {a} (rtol {worst:.3e})")
+        if second["wire_bytes"] != want_wire[CKPT_EVERY:]:
+            fail(f"phase 4c: resumed wire_bytes {second['wire_bytes']}")
+        log(f"  phase 4c resumed losses {b} vs {a}: rel diff {worst:.3e} "
+            f"(rtol {RESUME_LOSS_RTOL}); step_s {second['step_s']}")
+
+        # the cost of coded_bits_est: one coded_bits_tree at this gradient
+        g = [torch.randn(s, device="cuda", dtype=torch.float32).to(dt) for s, dt in leaves]
+        st = ex.init_state("cuda")
+        ms, val = _time_ms(torch, lambda: ex.coded_bits_tree(g, st), 3)
+        log(f"  phase 4c: coded_bits_tree at the gradient ({sum(sizes)} coordinates): "
+            f"{ms:.2f} ms a call, {float(val):.6e} bits")
+        del g
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log(f"phase 4c: {cfg.num_layers} layers, sync step {first['step_s'][1]:.3f} / "
+        f"{first['step_s'][3]:.3f} s, local step {first['step_s'][0]:.3f} / "
+        f"{first['step_s'][2]:.3f} s, peak {peak} bytes, coded_bits_tree {ms:.2f} ms")
+    return counts
 
 
 GAN_TABLES = {"uq8": (17,), "uq4": (7,), "layerwise": (7, 17)}  # kernel 5's num_symbols
@@ -1341,6 +1555,15 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     launches = {k: sum(r["counts"][k] for r in by_run.values()) for k in cuda.KERNELS}
+
+    # phase 4c: sync_every with the drift probe, recenter_every, coded_bits_est,
+    # the wire recorder and a checkpoint resume, at full width
+    t0 = time.perf_counter()
+    for k, n in local_update_path(torch, args.batch, args.seq).items():
+        launches[k] += n
+    log(f"phase 4c took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # phase 4b: the WGAN-GP testbed, every ported arm, and uq8 with the device PRNG
     t0 = time.perf_counter()

@@ -8,6 +8,19 @@ tree (nested dicts and tuples, the reference's structure).  Leaves are
 matched in JAX flatten order and checked by shape.
 :func:`gan_params_from_jax` and :func:`gan_params_to_jax` do the same for
 the WGAN-GP testbed's generator and critic (:class:`repro_torch.gan.wgan.WGAN`).
+
+The train state crosses the same way.  :func:`params_tree` and
+:func:`opt_state_tree` give the reference's structure with the port's own
+tensors as leaves (no copy; the optimizer's ``count`` stays a host int);
+:class:`~repro_torch.core.exchange.ExchangeState` already has the
+reference's six children (``step`` a host int).  These are the trees
+:mod:`repro_torch.checkpoint.checkpointing` saves and restores.
+:func:`to_numpy` turns such a tree into numpy (``opt_state_to_jax``,
+``ex_state_to_jax``: ints as int32 0-d arrays, as the reference holds
+them), and :func:`opt_state_from_jax` / :func:`ex_state_from_jax` take a
+state of either package's structure (the reference's NamedTuple /
+``ExchangeState`` with numpy leaves, or a restored tree) back into the
+port's state on a device.
 """
 
 from __future__ import annotations
@@ -15,7 +28,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.exchange import ExchangeState
 from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.optim.optimizers import AdamState
+from repro_torch.optim.qgenx import QGenXOptState
 
 
 def _tree_of(model) -> dict:
@@ -36,6 +52,14 @@ def _ints_to_tuple(node):
     if node and all(isinstance(k, int) for k in node):
         return tuple(_ints_to_tuple(node[k]) for k in sorted(node))
     return {k: _ints_to_tuple(v) for k, v in node.items()}
+
+
+def params_tree(model) -> dict:
+    """The model's parameters in the reference's params structure (the
+    tensors themselves)."""
+    tree = _tree_of(model)
+    tree.setdefault("layers_tail", ())
+    return tree
 
 
 def params_to_jax(model) -> dict:
@@ -85,3 +109,92 @@ def gan_params_from_jax(tree_of_numpy, model):
             raise ValueError(f"reference shape {a.shape} != {tuple(p.shape)}")
         p.copy_(torch.from_numpy(np.array(a, dtype=np.float32)))
     return model
+
+
+# ---------------------------------------------------------------------------
+# Optimizer and exchange states
+# ---------------------------------------------------------------------------
+
+_TREE_FIELDS = {QGenXOptState: ("anchor", "y", "prev_half"),
+                AdamState: ("mu", "nu", "prev_half_grad")}
+
+
+def opt_state_tree(state, model):
+    """The port's optimizer state (leaf lists in JAX order) in the
+    reference's structure: the same NamedTuple with each params-shaped
+    field nested like the params."""
+    spec = tree_flatten(params_tree(model))[1]
+    fields = _TREE_FIELDS[type(state)]
+    return state._replace(**{f: tree_unflatten(spec, getattr(state, f))
+                             for f in fields if getattr(state, f) is not None})
+
+
+def to_numpy(tree):
+    """A state tree with numpy leaves: tensors copied to the host (bf16 as
+    f32), host ints as int32 0-d arrays."""
+    def leaf(x):
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu()
+            return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+        if isinstance(x, int):
+            return np.asarray(x, np.int32)
+        return np.asarray(x)
+
+    def rec(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: rec(v) for k, v in node.items()}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(rec(v) for v in node))
+        if isinstance(node, (tuple, list)):
+            return type(node)(rec(v) for v in node)
+        if isinstance(node, ExchangeState):
+            return ExchangeState(*(rec(getattr(node, f)) for f in _EX_FIELDS))
+        return leaf(node)
+
+    return rec(tree)
+
+
+def opt_state_to_jax(state, model):
+    """The optimizer state as the reference's numpy tree."""
+    return to_numpy(opt_state_tree(state, model))
+
+
+def ex_state_to_jax(state: ExchangeState) -> ExchangeState:
+    """The exchange state with numpy leaves (the reference's children)."""
+    return to_numpy(state)
+
+
+_EX_FIELDS = ("levels", "levels_lo", "hist", "step", "error", "pending")
+
+
+def _tensor(x, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(device)
+    return torch.from_numpy(np.array(x)).to(device)
+
+
+def opt_state_from_jax(tree, kind, device):
+    """A reference-structured optimizer state (numpy or tensor leaves) ->
+    the port's ``kind`` (:class:`QGenXOptState` or :class:`AdamState`) on
+    ``device``, params-shaped fields as leaf lists in JAX order."""
+    vals = {}
+    for f in kind._fields:
+        v = getattr(tree, f)
+        if f == "count":
+            vals[f] = int(np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v))
+        elif v is None or f not in _TREE_FIELDS[kind]:
+            vals[f] = None if v is None else _tensor(v, device)
+        else:
+            vals[f] = [_tensor(l, device) for l in tree_flatten(v)[0]]
+    return kind(**vals)
+
+
+def ex_state_from_jax(tree, device) -> ExchangeState:
+    """A reference ``ExchangeState`` (numpy or tensor leaves) -> the port's,
+    ``step`` as a host int."""
+    vals = {f: getattr(tree, f) for f in _EX_FIELDS}
+    step = vals.pop("step")
+    step = int(np.asarray(step.cpu() if isinstance(step, torch.Tensor) else step))
+    return ExchangeState(step=step, **{f: _tensor(v, device) for f, v in vals.items()})

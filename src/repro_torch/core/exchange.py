@@ -30,16 +30,30 @@ The quantize / dequantize steps always run the exchange kernels of
 :mod:`repro_torch.kernels` — the port's counterpart of the reference's
 ``use_pallas=True`` path (``acc * (1/K)`` mean; C2 in ROADMAP.md).
 
+The wire recorder (:func:`wire_trace_start` / :func:`wire_trace_stop`,
+:func:`record_wire`, :func:`wire_scope`) names every buffer the exchange
+hands to a collective, under the reference's names.  The reference
+records at trace time, once per call site; the port records at run time,
+once per collective that runs, so the two lists agree on a step that
+runs every exchange it has (a sync step).  ``Exchange.coded_bits_tree``
+is the Theorem 2 entropy-coded estimate of one worker's broadcast
+(:func:`expected_index_pmf`, :func:`theorem2_bits_traced`).
+
+The train step's local-update fields ``sync_every`` / ``drift_probe`` /
+``recenter_every`` live in :class:`ExchangeConfig` as in the reference;
+:mod:`repro_torch.launch.steps` reads them.
+
 Not ported, and rejected by :class:`ExchangeConfig` (an unported value
 raises ``ValueError``, an unported field ``TypeError``): the randk and
 error-feedback compressors, mode ``leafwise``, QAda level schedules,
-``sync_every`` / ``recenter_every``, bucketed overlap and the unplanned
-layout (``use_plan``).  The flat per-vector
-``compress`` is not ported either: :class:`Exchange` has no such method.
+bucketed overlap and the unplanned layout (``use_plan``).  The flat
+per-vector ``compress`` is not ported either: :class:`Exchange` has no
+such method.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Optional
@@ -48,8 +62,14 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import exchange_plan as xplan
+from repro_torch.core.coding import C_B
 from repro_torch.core.noise import draw_rounding
-from repro_torch.core.quantization import QuantConfig, pad_to_buckets, uniform_levels
+from repro_torch.core.quantization import (
+    QuantConfig,
+    bucket_norms,
+    pad_to_buckets,
+    uniform_levels,
+)
 from repro_torch.core.tree import tree_flatten, tree_unflatten
 from repro_torch.kernels.dequant_reduce import (
     dequant_reduce_blocks,
@@ -59,6 +79,9 @@ from repro_torch.kernels.dequantize import dequantize_blocks
 from repro_torch.kernels.quantize import quantize_blocks
 
 COMPRESSORS = ("none", "qgenx", "layerwise")
+# bucket rows of one chunk of Exchange.coded_bits_tree (2^16 x 512
+# coordinates: ~1.3 GB of temporaries at the peak of a chunk)
+CODED_CHUNK_ROWS = 1 << 16
 
 # ---------------------------------------------------------------------------
 # Communicators
@@ -128,7 +151,7 @@ class ExchangeConfig:
     """The exchange's static configuration (reference field names).
 
     Only the ported fields exist: a field of the reference that is not
-    ported yet (``sync_every``, ``allreduce_fallback``, ...) is an unknown
+    ported yet (``allreduce_fallback``, ``level_schedule``, ...) is an unknown
     keyword and raises ``TypeError``; an unported value of a ported field
     raises ``ValueError``.  ``quant`` is the qgenx quantizer, or
     layerwise's low-bit one for leaves above ``layerwise_threshold``
@@ -138,6 +161,14 @@ class ExchangeConfig:
     buffer); the exact ``none`` compressor draws nothing either way.  The
     reference requires ``use_pallas`` for it; the port always runs its
     kernels, so nothing is left to check.
+
+    The local-update regime (read by the train step): ``sync_every`` —
+    the step exchanges only on every ``sync_every``-th optimizer step
+    (1 = every step); ``drift_probe`` — the leading parameter
+    coordinates the ``param_drift`` probe takes on a sync step (its only
+    extra wire traffic, counted); ``recenter_every`` — every
+    ``recenter_every``-th step the iterates are re-centered through this
+    exchange (0 = never).
     """
 
     compressor: str = "qgenx"
@@ -146,6 +177,9 @@ class ExchangeConfig:
     mode: str = "two_phase"
     layerwise_threshold: int = 65536
     use_device_prng: bool = False
+    sync_every: int = 1
+    drift_probe: int = 4096
+    recenter_every: int = 0
 
     def __post_init__(self):
         if self.compressor not in COMPRESSORS:
@@ -155,6 +189,14 @@ class ExchangeConfig:
             raise ValueError("compressor='qgenx' requires ExchangeConfig.quant")
         if self.mode not in ("gather", "two_phase"):
             raise ValueError(f"mode {self.mode!r} is not ported (gather | two_phase)")
+        if self.sync_every < 1:
+            raise ValueError(f"sync_every must be >= 1, got {self.sync_every}")
+        if self.drift_probe < 1:
+            raise ValueError(f"drift_probe must be >= 1, got {self.drift_probe}")
+        if self.recenter_every < 0:
+            raise ValueError(
+                f"recenter_every must be >= 0, got {self.recenter_every}"
+            )
 
 
 @dataclasses.dataclass
@@ -178,8 +220,47 @@ class ExchangeState:
 
 
 # ---------------------------------------------------------------------------
-# Wire accounting
+# Wire accounting (run-time recorder + analytic buffer sizes)
 # ---------------------------------------------------------------------------
+
+_WIRE_TRACE: Optional[list] = None
+_WIRE_PREFIX: str = ""
+
+
+def wire_trace_start() -> None:
+    """Begin recording ``(name, nbytes)`` for every buffer handed to a
+    collective.  The port records when the collective runs (the reference
+    when its step is traced): a step that does not sync records nothing."""
+    global _WIRE_TRACE
+    _WIRE_TRACE = []
+
+
+def wire_trace_stop() -> list:
+    """End recording; the ``[(name, nbytes), ...]`` collected since
+    :func:`wire_trace_start` (empty when nothing ran)."""
+    global _WIRE_TRACE
+    rec, _WIRE_TRACE = _WIRE_TRACE, None
+    return rec or []
+
+
+@contextlib.contextmanager
+def wire_scope(prefix: str):
+    """Every operand recorded inside gets ``prefix`` prepended to its name;
+    scopes nest by concatenation."""
+    global _WIRE_PREFIX
+    old = _WIRE_PREFIX
+    _WIRE_PREFIX = old + prefix
+    try:
+        yield
+    finally:
+        _WIRE_PREFIX = old
+
+
+def record_wire(name: str, t: torch.Tensor) -> None:
+    """Count ``t`` as a collective operand in the active recording (free
+    when none is active)."""
+    if _WIRE_TRACE is not None:
+        _WIRE_TRACE.append((_WIRE_PREFIX + name, t.numel() * t.element_size()))
 
 
 def exchange_buffer_bytes(n: int, axis_size: int, cfg: QuantConfig,
@@ -202,6 +283,85 @@ def exchange_buffer_bytes(n: int, axis_size: int, cfg: QuantConfig,
             "gather_norms": 4 * nb_per_chunk,
         }
     raise ValueError(f"unknown mode {mode!r}")
+
+
+def wire_bytes_per_device(n: int, axis_size: int, cfg: Optional[QuantConfig],
+                          mode: str = "two_phase") -> float:
+    """Bytes each worker transmits per reduction: an all_gather operand
+    enters the network once; a tiled all_to_all keeps 1/K of its buffer
+    local.  ``cfg=None``: the ring all-reduce of f32, 2(K-1)/K * 4n."""
+    if cfg is None:
+        return 2 * (axis_size - 1) / axis_size * 4.0 * n
+    sizes = exchange_buffer_bytes(n, axis_size, cfg, mode)
+    if mode == "gather":
+        return float(sizes["gather_payload"] + sizes["gather_norms"])
+    a2a = sizes["a2a_payload"] + sizes["a2a_norms"]
+    gather = sizes["gather_payload"] + sizes["gather_norms"]
+    return float(a2a * (axis_size - 1) / axis_size + gather)
+
+
+# ---------------------------------------------------------------------------
+# Entropy-coded wire estimate (Theorem 2)
+# ---------------------------------------------------------------------------
+
+
+def _bracket_select(u: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
+    """The bracket index of normalized magnitudes ``u`` in [0, 1]:
+    ``clip(searchsorted(levels, u, 'right') - 1, 0, s)``, the count of
+    interior levels at or below u (the table is sorted); int32."""
+    return torch.searchsorted(levels[1:-1].contiguous(), u.contiguous(), right=True,
+                              out_int32=True)
+
+
+def _index_mass(u: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
+    """Per-symbol expected counts of ``u`` ([rows, n]) under unbiased
+    rounding: a coordinate in bracket tau, at fractional position
+    xi = (u - l_tau) / (l_tau+1 - l_tau), gives 1 - xi to symbol tau and
+    xi to tau + 1.  Returns [num_symbols] f64.
+
+    Per bracket j only the count C_j and the sum U_j of u are needed: the
+    mass rounded up is X_j = (U_j - C_j l_j) / (l_j+1 - l_j), and symbol j
+    gets C_j - X_j + X_j-1.  Both sums come from ``bincount``s keyed by
+    (row, bracket), so a bin takes at most n adds (f32) and no bin is
+    shared by the whole buffer; the rows then add up in f64."""
+    lv = levels.double()
+    s = lv.shape[0]
+    rows = u.shape[0]
+    tau = _bracket_select(u, levels.float())
+    key = tau.add_(torch.arange(rows, device=u.device, dtype=torch.int32)[:, None] * s)
+    key = key.reshape(-1)
+    usum = torch.bincount(key, weights=u.reshape(-1), minlength=rows * s)
+    usum = usum.view(rows, s).sum(0, dtype=torch.float64)[: s - 1]
+    count = torch.bincount(key, minlength=rows * s).view(rows, s).sum(0).double()[: s - 1]
+    up = (usum - count * lv[:-1]) / (lv[1:] - lv[:-1])
+    mass = torch.zeros(s, dtype=torch.float64, device=u.device)
+    mass[:-1] = count - up
+    mass[1:] += up
+    return mass
+
+
+def expected_index_pmf(u: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
+    """Expected |level-index| distribution under unbiased stochastic
+    rounding (Definition 1) of normalized magnitudes ``u`` in [0, 1]: a
+    [num_symbols] f32 pmf, no draw needed.  Rows of ``u``'s last dim are
+    summed in f32 and added up in f64, so the pmf is the reference's f32
+    sums' up to their rounding."""
+    return (_index_mass(u.reshape(-1, u.shape[-1]).float(), levels) / u.numel()).float()
+
+
+def theorem2_bits_traced(pmf: torch.Tensor, d: int, num_buckets: int) -> torch.Tensor:
+    """Theorem 2 expected CODE o Q bits, an f32 scalar on the pmf's device
+    (the formula of :func:`repro_torch.core.coding.theorem2_expected_bits`,
+    in f32 as the reference's traced twin computes it)::
+
+        C_b * num_buckets + (1 - p0) * d + (H(L) + 1) * d
+    """
+    nz = pmf > 0
+    h = -torch.sum(torch.where(nz, pmf * torch.log2(torch.where(nz, pmf, 1.0)), 0.0))
+    f32 = dict(dtype=torch.float32, device=pmf.device)
+    d_t = torch.tensor(d, **f32)
+    return (C_B * torch.tensor(num_buckets, **f32) + (1.0 - pmf[0]) * d_t
+            + (h + 1.0) * d_t)
 
 
 # ---------------------------------------------------------------------------
@@ -230,6 +390,8 @@ def qgenx_pmean(x: torch.Tensor, comm, levels: torch.Tensor, noise,
         payload, norms = quantize_blocks(x2d, r, levels, num_symbols=cfg.num_symbols,
                                          q_is_inf=q_is_inf, bits=cfg.bits, seed=seed)
         del r
+        record_wire("gather_payload", payload)
+        record_wire("gather_norms", norms)
         mean2d = dequant_reduce_blocks(
             comm.all_gather(payload), comm.all_gather(norms), levels,
             num_symbols=cfg.num_symbols, num_workers=K, bits=cfg.bits)
@@ -244,14 +406,19 @@ def qgenx_pmean(x: torch.Tensor, comm, levels: torch.Tensor, noise,
                                          q_is_inf=q_is_inf, bits=cfg.bits, seed=seed)
         del r
         # row k of the [K, nbpc, P] payload is the chunk destined to worker k
-        p_t = comm.all_to_all(payload.reshape(K, nbpc, -1))
-        n_t = comm.all_to_all(norms.reshape(K, nbpc))
+        payload, norms = payload.reshape(K, nbpc, -1), norms.reshape(K, nbpc)
+        record_wire("a2a_payload", payload)
+        record_wire("a2a_norms", norms)
+        p_t = comm.all_to_all(payload)
+        n_t = comm.all_to_all(norms)
         del payload, norms
         r2, seed2 = draw_rounding(noise, (nbpc, bucket), x2d.device, use_device_prng)
         ridx, rnorms = dequant_reduce_requantize_blocks(
             p_t, n_t, levels, r2, num_symbols=cfg.num_symbols, num_workers=K,
             q_is_inf=q_is_inf, bits=cfg.bits, seed=seed2)
         del r2, p_t, n_t
+        record_wire("gather_payload", ridx)
+        record_wire("gather_norms", rnorms)
         g_idx = comm.all_gather(ridx).reshape(K * nbpc, -1)
         g_norms = comm.all_gather(rnorms).reshape(K * nbpc)
         out = dequantize_blocks(g_idx, g_norms, levels, num_symbols=cfg.num_symbols,
@@ -488,6 +655,38 @@ class Exchange:
     def compress_wire_bytes(self, n: int) -> float:
         """Bytes one worker broadcasts for one compressed n-vector."""
         return self.compressor.compress_wire_bytes(n, self.cfg)
+
+    def coded_bits_tree(self, tree, state: ExchangeState):
+        """Theorem 2 estimate of the entropy-coded bits ONE worker would
+        broadcast for this pytree (CODE o Q with an optimal prefix code)
+        under ``state.levels``: the expected index pmf of the unbiased
+        rounding over the bucket-padded buffer of the ``compress`` plan
+        (the coordinates the fixed-width payload pays for), an f32 scalar.
+        0.0 for every compressor but qgenx (layerwise would need a pmf
+        per table).
+
+        The buffer is read in chunks of :data:`CODED_CHUNK_ROWS` bucket
+        rows, each built from the leaves, so no full-size copy or
+        per-coordinate temporary outlives a chunk; the per-bracket sums add
+        up in f32 within a bucket row and in f64 over rows and chunks."""
+        if self.cfg.compressor != "qgenx":
+            return 0.0
+        q = self.cfg.quant
+        leaves = tree_flatten(tree)[0]
+        plan = self.plan_for(leaves, "compress", 1)
+        b = q.bucket_size
+        rows = plan.total // b
+        mass = None
+        for r0 in range(0, rows, CODED_CHUNK_ROWS):
+            r1 = min(rows, r0 + CODED_CHUNK_ROWS)
+            v2d = plan.pack_range(leaves, r0 * b, r1 * b).reshape(-1, b)
+            norms = bucket_norms(v2d, q.q_norm)
+            u = v2d.abs_().div_(torch.where(norms > 0, norms, 1.0)[:, None]).clamp_(0.0, 1.0)
+            m = _index_mass(u, state.levels)
+            del v2d, u
+            mass = m if mass is None else mass + m
+        pmf = (mass / (rows * b)).float()
+        return theorem2_bits_traced(pmf, rows * b, rows)
 
     def compress_wire_bytes_tree(self, tree) -> float:
         """Broadcast bytes of one ``compress_tree`` of this pytree: one

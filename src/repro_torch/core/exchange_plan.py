@@ -92,6 +92,24 @@ class ExchangePlan:
             flat[..., pos:].zero_()
         return flat
 
+    def pack_range(self, leaves, start: int, stop: int) -> torch.Tensor:
+        """Coordinates ``[start, stop)`` of :meth:`pack`'s buffer, built
+        without the whole buffer (padding tails zero)."""
+        dev = leaves[0].device if leaves else torch.device("cpu")
+        out = torch.empty((stop - start,), dtype=torch.float32, device=dev)
+        pos = start
+        for i in self.pack_order:
+            off, n = self.offsets[i], size_of(self.shapes[i])
+            lo, hi = max(off, start), min(off + n, stop)
+            if lo < hi:
+                if lo > pos:
+                    out[pos - start: lo - start].zero_()
+                out[lo - start: hi - start].copy_(leaves[i].reshape(-1)[lo - off: hi - off])
+                pos = hi
+        if pos < stop:
+            out[pos - start:].zero_()
+        return out
+
     def unpack(self, flat: torch.Tensor, leaves) -> list:
         """Flat buffer (``[*batch, total]``) -> per-leaf tensors shaped and
         cast like ``leaves`` (f32 leaves are views of ``flat``)."""

@@ -53,6 +53,14 @@ class SyntheticPipeline:
         labels = toks[:, 1:] if toks.shape[1] > 1 else toks
         return {"tokens": inputs, "labels": labels}
 
+    def restore(self, state: dict) -> None:
+        """Continue from ``state`` (``{"step", "seed"}``, as the launcher
+        writes it after a checkpoint restore); the seed must match."""
+        if state["seed"] != self.cfg.seed:
+            raise ValueError(f"pipeline seed mismatch: checkpoint {state['seed']}, "
+                             f"pipeline {self.cfg.seed}")
+        self.step = int(state["step"])
+
 
 def make_pipeline(vocab_size: int, batch: int, seq_len: int, seed: int = 0) -> SyntheticPipeline:
     """Batches of ``batch`` rows of ``seq_len`` inputs (+1 token so inputs

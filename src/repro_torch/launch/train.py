@@ -19,6 +19,20 @@ something to compress (the world-size-1 communicator), so one card drives
 every exchange kernel.  As in the reference, no flag selects the
 device-PRNG exchange: a caller of :func:`run` passes
 ``exchange=ExchangeConfig(..., use_device_prng=True)``.
+
+``--sync-every`` / ``--recenter-every`` set the local-update regime
+(:mod:`repro_torch.launch.steps`); step lines then add ``drift=`` and,
+for qgenx, ``coded_bits=`` (the Theorem 2 estimate).  ``--checkpoint-dir``
+with ``--checkpoint-every`` saves every N steps and at the end, in the
+reference's format (:mod:`repro_torch.checkpoint.checkpointing`: a
+checkpoint of either package resumes in the other); a run whose
+directory holds a checkpoint resumes from the newest intact one, and
+exits 2 with a diagnosis when none is intact or its trees do not match
+this run (``--allow-ckpt-reset`` keeps a fresh ``ex_state`` instead).  At
+K > 1 rank 0 writes behind a barrier and every rank reads.  Each step's
+noise comes from a generator seeded from (seed, rank, step), so a resumed
+run draws the noise the uninterrupted run draws.  ``--repeat-batch``
+trains every step on the first batch the run draws.
 """
 
 from __future__ import annotations
@@ -26,12 +40,17 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import sys
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import convert
+from repro_torch.checkpoint import checkpointing
+from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import ARCHS, get_config
 from repro_torch.core.exchange import (
     COMPRESSORS,
@@ -42,6 +61,7 @@ from repro_torch.core.exchange import (
 )
 from repro_torch.core.noise import GeneratorNoise
 from repro_torch.core.quantization import QuantConfig
+from repro_torch.core.tree import tree_flatten
 from repro_torch.data.pipeline import make_pipeline, to_device
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_train_step
@@ -63,11 +83,13 @@ def build_exchange_config(args) -> ExchangeConfig:
     if args.compressor == "layerwise" and args.compression == "none":
         raise ValueError("--compressor layerwise needs --compression int8 or int4 "
                          "(its quantizer for leaves above the threshold)")
+    local = dict(sync_every=args.sync_every, recenter_every=args.recenter_every)
     if args.compression == "none":
-        return ExchangeConfig(compressor="none", mode=args.compress_mode)
+        return ExchangeConfig(compressor="none", mode=args.compress_mode, **local)
     bits = 8 if args.compression == "int8" else 4
     quant = QuantConfig(num_levels=15 if bits == 8 else 5, bits=bits, bucket_size=512)
-    return ExchangeConfig(compressor=args.compressor, quant=quant, mode=args.compress_mode)
+    return ExchangeConfig(compressor=args.compressor, quant=quant, mode=args.compress_mode,
+                          **local)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -87,6 +109,19 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--compression", default="none", choices=("none", "int8", "int4"))
     ap.add_argument("--compressor", default="qgenx", choices=COMPRESSORS)
     ap.add_argument("--compress-mode", default="two_phase", choices=("two_phase", "gather"))
+    ap.add_argument("--sync-every", type=int, default=1,
+                    help="local-update regime: K local steps between exchanges "
+                         "(1 = exchange every step)")
+    ap.add_argument("--recenter-every", type=int, default=0,
+                    help="re-center the iterates through the exchange every R-th "
+                         "step (0 = never)")
+    ap.add_argument("--checkpoint-dir", default="")
+    ap.add_argument("--checkpoint-every", type=int, default=0)
+    ap.add_argument("--allow-ckpt-reset", action="store_true",
+                    help="on restore, reset an incompatible ex_state to fresh init "
+                         "instead of exiting; params/opt_state mismatches always exit")
+    ap.add_argument("--repeat-batch", action="store_true",
+                    help="train on one repeated batch (fast-convergence tests)")
     ap.add_argument("--device", default="cuda", help="cuda (default) | cpu")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=1)
@@ -107,16 +142,86 @@ def _init_distributed(device: torch.device):
     return ProcessGroupComm(), rank, world, device
 
 
-def run(args, log=print, exchange: Optional[ExchangeConfig] = None) -> dict:
-    """Train per ``args``; returns ``{"loss": [...], "wire_bytes": [...],
-    "step_s": [...]}`` (one entry per step, replicated over workers).
-    ``exchange`` replaces the exchange config the flags give (for fields
-    that have no flag, such as ``use_device_prng``)."""
+def step_noise(seed: int, rank: int, step: int, device) -> GeneratorNoise:
+    """The noise source of one step of one worker: a generator seeded from
+    (seed, rank, step), so a run resumed at any step draws what the
+    uninterrupted run draws."""
+    s = np.random.SeedSequence([seed, rank, step]).generate_state(1, np.uint64)[0]
+    return GeneratorNoise.seeded(int(s), device)
+
+
+def state_trees(model, opt_state, ex_state) -> dict:
+    """The run's state as the named trees a checkpoint holds, in the
+    reference's structure (the tensors themselves)."""
+    return {"params": convert.params_tree(model),
+            "opt_state": convert.opt_state_tree(opt_state, model),
+            "ex_state": ex_state}
+
+
+def _save(path: str, step: int, model, opt_state, ex_state, rank: int, world: int) -> dict:
+    """Rank 0 writes, the others wait at a barrier; ``{"step", "bytes",
+    "seconds"}`` (bytes 0 on the other ranks)."""
+    t0 = time.perf_counter()
+    info = {"bytes": 0}
+    if rank == 0:
+        info = checkpointing.save(path, step, state_trees(model, opt_state, ex_state))
+    if world > 1:
+        dist.barrier()
+    return {"step": step, "bytes": info["bytes"], "seconds": time.perf_counter() - t0}
+
+
+@torch.no_grad()
+def restore_checkpoint(args, model, opt_state, ex_state, device, log=print):
+    """Restore the newest intact checkpoint of ``args.checkpoint_dir`` into
+    ``model``; returns ``(opt_state, ex_state, {"step", "bytes",
+    "seconds"})``.  Exits 2 with a diagnosis when no checkpoint is intact
+    or its trees do not match this run's."""
+    t0 = time.perf_counter()
+    templates = state_trees(model, opt_state, ex_state)
+    allow = ("ex_state",) if args.allow_ckpt_reset else ()
+    try:
+        step, trees, reset = checkpointing.restore_with_fallback(
+            args.checkpoint_dir, templates, allow_reset=allow)
+    except checkpointing.CheckpointStructureError as e:
+        print(f"[train] checkpoint tree {e.tree!r} does not match this run's state: "
+              f"{e.detail}", file=sys.stderr)
+        print("[train] pass --allow-ckpt-reset to reset incompatible auxiliary state "
+              "(ex_state), or fix the run config to match the checkpoint", file=sys.stderr)
+        raise SystemExit(2)
+    except checkpointing.CheckpointCorruptError as e:
+        print(f"[train] no intact checkpoint at {args.checkpoint_dir}: {e}", file=sys.stderr)
+        raise SystemExit(2)
+    for p, v in zip(tree_flatten(templates["params"])[0], tree_flatten(trees["params"])[0]):
+        p.copy_(v)
+    opt_state = convert.opt_state_from_jax(trees["opt_state"], type(opt_state), device)
+    if "ex_state" in trees:
+        ex_state = convert.ex_state_from_jax(trees["ex_state"], device)
+    for name in reset:
+        log(f"[train] checkpoint {name} incompatible with this run's config; reset to "
+            f"fresh init (--allow-ckpt-reset)")
+    nbytes = sum(os.path.getsize(os.path.join(args.checkpoint_dir, f"ckpt_{step}.{ext}"))
+                 for ext in ("npz", "meta"))
+    info = {"step": step, "bytes": nbytes, "seconds": time.perf_counter() - t0}
+    log(f"[train] restored step {step}")
+    return opt_state, ex_state, info
+
+
+def run(args, log=print, exchange: Optional[ExchangeConfig] = None,
+        config: Optional[ModelConfig] = None) -> dict:
+    """Train per ``args``; returns, one entry per step run (replicated over
+    workers), ``loss``, ``wire_bytes``, ``param_drift``,
+    ``coded_bits_est`` and ``step_s``, with ``start_step`` (the restored
+    step, else 0), ``restored`` (the restore's step, checkpoint bytes and
+    seconds, or None) and ``saves`` (each save's step, bytes and
+    seconds).  ``exchange`` replaces the exchange config the flags give
+    (for fields that have no flag, such as ``use_device_prng``);
+    ``config`` replaces the model config of ``--arch`` / ``--reduced``
+    (``--dtype`` still applies)."""
     device = resolve_device(args.device)
     comm, rank, world, device = _init_distributed(device)
     try:
-        cfg = get_config(args.arch)
-        if args.reduced:
+        cfg = config or get_config(args.arch)
+        if args.reduced and config is None:
             cfg = cfg.reduced()
         cfg = dataclasses.replace(cfg, dtype=args.dtype)
         if args.batch % world:
@@ -128,7 +233,6 @@ def run(args, log=print, exchange: Optional[ExchangeConfig] = None) -> dict:
         ex = make_exchange(exchange or build_exchange_config(args), comm)
         ex_state = ex.init_state(device)
         step_fn = make_train_step(model, opt_cfg, ex)
-        noise = GeneratorNoise.seeded((args.seed << 16) + rank, device)
         pipe = make_pipeline(cfg.vocab_size, args.batch, args.seq, seed=args.seed)
         rows = slice(rank * args.batch // world, (rank + 1) * args.batch // world)
         if rank == 0:
@@ -136,20 +240,46 @@ def run(args, log=print, exchange: Optional[ExchangeConfig] = None) -> dict:
                 f"device={device} workers={world} optimizer={args.optimizer} "
                 + (f"method={args.method} " if args.optimizer == "qgenx" else "")
                 + f"compressor={ex.cfg.compressor} compression={args.compression} "
-                f"mode={ex.cfg.mode}")
-        out = {"loss": [], "wire_bytes": [], "step_s": []}
-        for step in range(args.steps):
-            batch = to_device(next(pipe), device, rows)
+                f"mode={ex.cfg.mode} sync_every={ex.cfg.sync_every} "
+                f"recenter_every={ex.cfg.recenter_every}")
+        out = {"loss": [], "wire_bytes": [], "param_drift": [], "coded_bits_est": [],
+               "step_s": [], "start_step": 0, "restored": None, "saves": []}
+        ckpt = args.checkpoint_dir
+        if ckpt and (checkpointing.latest_step(ckpt) is not None
+                     or checkpointing.available_steps(ckpt)):
+            opt_state, ex_state, out["restored"] = restore_checkpoint(
+                args, model, opt_state, ex_state, device, log if rank == 0 else (lambda m: None))
+            out["start_step"] = out["restored"]["step"]
+            pipe.restore({"step": out["start_step"], "seed": args.seed})
+        fixed = to_device(next(pipe), device, rows) if args.repeat_batch else None
+        for step in range(out["start_step"], args.steps):
+            batch = fixed if fixed is not None else to_device(next(pipe), device, rows)
+            noise = step_noise(args.seed, rank, step, device)
             t0 = time.perf_counter()
             opt_state, ex_state, metrics = step_fn(opt_state, ex_state, batch, noise)
             loss = float(metrics["loss"])  # waits for the step's device work
             dt = time.perf_counter() - t0
+            drift = float(metrics["param_drift"])
+            coded = float(metrics["coded_bits_est"])
             out["loss"].append(loss)
             out["wire_bytes"].append(float(metrics["wire_bytes"]))
+            out["param_drift"].append(drift)
+            out["coded_bits_est"].append(coded)
             out["step_s"].append(dt)
             if rank == 0 and (step % args.log_every == 0 or step == args.steps - 1):
+                tail = f" drift={drift:.3e}" if ex.cfg.sync_every > 1 else ""
+                if coded:
+                    tail += f" coded_bits={coded:.3e}"
                 log(f"[train] step={step} loss={loss:.4f} dt={dt * 1e3:.0f}ms "
-                    f"wire={metrics['wire_bytes']:.3e}B")
+                    f"wire={metrics['wire_bytes']:.3e}B{tail}")
+            if ckpt and args.checkpoint_every and (step + 1) % args.checkpoint_every == 0:
+                out["saves"].append(_save(ckpt, step + 1, model, opt_state, ex_state,
+                                          rank, world))
+        # no step ran (restored at or past --steps): save nothing, or the
+        # 'latest' pointer would move below the restored step
+        if ckpt and out["step_s"]:
+            out["saves"].append(_save(ckpt, args.steps, model, opt_state, ex_state,
+                                      rank, world))
         return out
     finally:
         if world > 1:
@@ -157,8 +287,16 @@ def run(args, log=print, exchange: Optional[ExchangeConfig] = None) -> dict:
 
 
 def main(argv=None):
-    out = run(parser().parse_args(argv))
-    print(f"[train] done. final_loss={out['loss'][-1]:.4f}")
+    args = parser().parse_args(argv)
+    out = run(args)
+    times = out["step_s"]
+    if not times:
+        print(f"[train] done. no steps run (restored step {out['start_step']} >= "
+              f"--steps {args.steps})")
+        return out
+    rest = sorted(times[1:])
+    med = rest[len(rest) // 2] if rest else times[0]
+    print(f"[train] done. final_loss={out['loss'][-1]:.4f} median_step={med * 1e3:.0f}ms")
     return out
 
 

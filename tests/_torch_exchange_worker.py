@@ -98,11 +98,21 @@ def run_layerwise(rank, world, store_path, in_path, out_dir, cases, backend, dev
         dist.destroy_process_group()
 
 
+def _load_out(workdir, i, k):
+    """A worker's output: ``out_{i}_{k}.npy`` (an array) or ``.npz`` (a dict)."""
+    npy = workdir / f"out_{i}_{k}.npy"
+    if npy.exists():
+        return np.load(npy)
+    with np.load(workdir / f"out_{i}_{k}.npz") as z:
+        return dict(z)
+
+
 def run_group(K, workdir, inputs, cases, backend="gloo", device="cpu", while_running=None,
               target=run):
     """Run K workers of ``target`` over ``inputs`` (for :func:`run`, keys
     ``x_/n1_/n2_{case}_{rank}``, or ``s1_/s2_`` seeds for the device
-    PRNG); returns ``outs[case][rank]`` and
+    PRNG); returns ``outs[case][rank]`` (an array, or the dict of a
+    target that writes npz) and
     ``while_running()``'s result (called in this process while the
     workers run)."""
     import torch.multiprocessing as mp
@@ -127,6 +137,80 @@ def run_group(K, workdir, inputs, cases, backend="gloo", device="cpu", while_run
             if p.is_alive():
                 p.kill()
                 p.join(10)
-    outs = [[np.load(workdir / f"out_{i}_{k}.npy") for k in range(K)]
-            for i in range(len(cases))]
+    outs = [[_load_out(workdir, i, k) for k in range(K)] for i in range(len(cases))]
     return outs, extra
+
+
+def run_step(rank, world, store_path, in_path, out_dir, cases, backend, device):
+    """Each case ``(name, method, bits, mode, sync_every, recenter_every,
+    steps)`` of ``_torch_step_k2_reference.CASES``: the port's train step on
+    reduced tinyllama-1.1b from the reference's initial params
+    (``p0_{j}``), on this worker's rows of each step's batch, with this
+    worker's noise draws replayed (``noise_{rank}_{i}``).  Saves
+    ``out_{case}_{rank}.npz``: the per-step metrics, the final params
+    (``p_{j}``) and the wire recorder's ``(name, nbytes)`` list of the first
+    step that exchanged, and the optimizer state's ``count`` (and qgenx's
+    ``sum_sq``) as the reference's numpy tree holds them."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import opt_state_to_jax, params_from_jax
+    from repro_torch.core import exchange as xmod
+    from repro_torch.core.noise import ReplayNoise
+    from repro_torch.core.quantization import QuantConfig
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import build
+    from repro_torch.optim import optimizers as opt
+    from repro_torch.optim.optimizers import OptimizerConfig
+
+    dev = torch.device(device)
+    data = np.load(in_path)
+    dist.init_process_group(backend, store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        for i, (name, method, bits, mode, sync_every, recenter_every, steps) in enumerate(cases):
+            n_leaves = sum(1 for k in data.files if k.startswith("p0_"))
+            model = params_from_jax([data[f"p0_{j}"] for j in range(n_leaves)],
+                                    build(get_config("tinyllama-1.1b").reduced(), device=dev))
+            quant = QuantConfig(num_levels=15 if bits == 8 else 5, bits=bits, bucket_size=256)
+            ex = xmod.make_exchange(
+                xmod.ExchangeConfig(compressor="qgenx", quant=quant, mode=mode,
+                                    sync_every=sync_every, recenter_every=recenter_every),
+                xmod.ProcessGroupComm())
+            opt_cfg = OptimizerConfig(name=name, gamma_scale=0.02, method=method)
+            step = make_train_step(model, opt_cfg, ex)
+            opt_state = opt.init_state(opt_cfg, model.param_leaves())
+            ex_state = ex.init_state(dev)
+            draws = sorted((k for k in data.files if k.startswith(f"noise_{rank}_")),
+                           key=lambda k: int(k.rsplit("_", 1)[1]))
+            noise = ReplayNoise([data[k] for k in draws])
+            rows = slice(rank * 2, rank * 2 + 2)
+            out = {k: [] for k in ("loss", "wire_bytes", "param_drift", "coded_bits_est")}
+            trace = None
+            for t in range(steps):
+                batch = to_device({"tokens": data[f"tokens_{t}"],
+                                   "labels": data[f"labels_{t}"]}, dev, rows)
+                recording = trace is None
+                if recording:
+                    xmod.wire_trace_start()
+                opt_state, ex_state, m = step(opt_state, ex_state, batch, noise)
+                if recording:
+                    rec = xmod.wire_trace_stop()
+                    trace = rec or None
+                for k in out:
+                    out[k].append(float(m[k]))
+            if noise.remaining:
+                raise RuntimeError("not every noise draw was used")
+            res = {k: np.asarray(v, np.float64) for k, v in out.items()}
+            for j, p in enumerate(model.param_leaves()):
+                res[f"p_{j}"] = p.detach().cpu().numpy()
+            state = opt_state_to_jax(opt_state, model)
+            res["opt_count"] = state.count
+            if name == "qgenx":
+                res["opt_sum_sq"] = state.sum_sq
+            res["wire_names"] = np.asarray([nm for nm, _ in trace or []], dtype=str)
+            res["wire_nbytes"] = np.asarray([nb for _, nb in trace or []], np.int64)
+            np.savez(f"{out_dir}/out_{i}_{rank}.npz", **res)
+    finally:
+        dist.destroy_process_group()

@@ -1,0 +1,157 @@
+"""The reference train step at K = 2, run in a process of its own.
+
+    XLA_FLAGS=--xla_force_host_platform_device_count=2 JAX_PLATFORMS=cpu \\
+        PYTHONPATH=src python tests/_torch_step_k2_reference.py CASE OUT.npz [jnp]
+
+JAX fixes its device count when it first starts, so the two forced host
+devices cannot be had inside the pytest process: ``tests/test_torch_step_k2.py``
+runs this file in a subprocess.  It builds reduced tinyllama-1.1b (f32,
+weights from ``PRNGKey(0)``), runs ``make_train_step`` of case ``CASE``
+(:data:`CASES`) on a 2-device mesh under the ``shard_map`` shim of
+``tests/test_torch_step.py`` (C1 in ROADMAP.md), and writes to ``OUT.npz``:
+
+* the initial params (``p0_{j}``, leaves in JAX order) and each step's
+  batch (``tokens_{t}``, ``labels_{t}``, global: worker k takes rows
+  ``k * B/2 : (k + 1) * B/2``);
+* per step, the metrics ``loss``, ``wire_bytes``, ``param_drift`` and
+  ``coded_bits_est`` (arrays over steps) and the exchange-call count;
+* the final params (``p_{j}``) and optimizer state's ``count`` and, for
+  qgenx, ``sum_sq`` (``opt_count``, ``opt_sum_sq``);
+* each worker's noise draws in the order its exchanges ask for them
+  (``noise_{k}_{i}``): per exchange key, ``fold_in(key, worker)`` ->
+  ``split`` -> the quantize draw and, two_phase, the re-quantize draw.
+  The step splits its key into the first and second exchange's keys (an
+  ``optda`` step uses the second only); the re-centering exchange's key
+  is ``fold_in(key, 0x5eed)``.  Only the exchanges that run draw: the
+  schedule is read off ``opt_state.count`` as the step gates it, and
+  checked against the exchange-call counter;
+* the trace-time wire recorder's ``(name, nbytes)`` list of the jitted
+  step (``wire_names``, ``wire_nbytes``: every call site once).
+
+The reference runs with ``use_pallas=True``, the path the port's kernels
+follow (interpret-mode Pallas; the 2-device rendezvous does not stall at
+this size), or with a third argument ``jnp`` on its jnp path
+(``use_pallas=False``), which differs from the Pallas path only in the
+last ulp of the K-mean (C2 in ROADMAP.md).
+"""
+
+import sys
+
+BATCH, SEQ, GAMMA, BUCKET = 4, 16, 0.02, 256
+RECENTER_TAG = 0x5EED
+
+# name -> (optimizer, method, bits, mode, sync_every, recenter_every, steps)
+CASES = {
+    "a": ("qgenx", "de", 8, "two_phase", 1, 0, 2),
+    "b": ("qgenx", "optda", 4, "gather", 2, 2, 4),
+    "c": ("extra_adam", "de", 8, "two_phase", 2, 0, 4),
+}
+
+
+def exchange_keys(case, count, key):
+    """The keys of the exchanges a step with pre-step optimizer count
+    ``count`` runs, in order (``jax`` imported by the caller)."""
+    import jax
+
+    name, method, _, _, sync_every, recenter_every, _ = CASES[case]
+    k1, k2 = jax.random.split(key)
+    keys = []
+    if count % sync_every == sync_every - 1:
+        keys += [k2] if (name == "qgenx" and method == "optda") else [k1, k2]
+    if recenter_every and count % recenter_every == recenter_every - 1:
+        keys.append(jax.random.fold_in(key, RECENTER_TAG))
+    return keys
+
+
+def shard_map_shim(f, *, mesh, in_specs, out_specs, check_rep=False, auto=frozenset()):
+    import jax
+
+    return jax.shard_map(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
+                         axis_names=set(mesh.axis_names) - set(auto), check_vma=check_rep)
+
+
+def main(case: str, out_path: str, path: str = "pallas") -> None:
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from jax.sharding import Mesh
+
+    import repro.launch.steps as steps
+    from repro.configs.registry import get_config
+    from repro.core.exchange import ExchangeConfig, make_exchange, wire_trace_start, \
+        wire_trace_stop
+    from repro.core.quantization import QuantConfig
+    from repro.data.pipeline import _batch_tokens, PipelineConfig
+    from repro.models.model import build
+    from repro.optim import optimizers as opt
+
+    K = 2
+    assert jax.device_count() == K, "run with --xla_force_host_platform_device_count=2"
+    steps.shard_map = shard_map_shim
+    name, method, bits, mode, sync_every, recenter_every, n_steps = CASES[case]
+    cfg = get_config("tinyllama-1.1b").reduced()
+    model = build(cfg)
+    params = model.init(jax.random.PRNGKey(0))
+    quant = QuantConfig(num_levels=15 if bits == 8 else 5, bits=bits, bucket_size=BUCKET)
+    ex = make_exchange(ExchangeConfig(compressor="qgenx", quant=quant, mode=mode,
+                                      use_pallas=path == "pallas", sync_every=sync_every,
+                                      recenter_every=recenter_every))
+    opt_cfg = opt.OptimizerConfig(name=name, gamma_scale=GAMMA, method=method)
+    opt_state = opt.init_state(opt_cfg, params)
+    ex_state = ex.init_state()
+    mesh = Mesh(np.array(jax.devices()), ("data",))
+    step = jax.jit(steps.make_train_step(model, opt_cfg, exchange=ex, mesh=mesh))
+
+    leaves = jax.tree_util.tree_leaves(params)
+    out = {f"p0_{j}": np.asarray(l) for j, l in enumerate(leaves)}
+    n = sum(l.size for l in leaves)
+    if mode == "two_phase":
+        rows = -(-n // (K * BUCKET)) * K
+    else:
+        rows = -(-n // BUCKET)
+    pc = PipelineConfig(vocab_size=cfg.vocab_size, batch=BATCH, seq_len=SEQ + 1, seed=0)
+    draws = [[] for _ in range(K)]
+    metrics = {k: [] for k in ("loss", "wire_bytes", "param_drift", "coded_bits_est")}
+    calls = []
+    base = jax.random.PRNGKey(7)
+    with mesh:
+        for t in range(n_steps):
+            toks = _batch_tokens(pc, t)
+            out[f"tokens_{t}"], out[f"labels_{t}"] = toks[:, :-1], toks[:, 1:]
+            batch = {"tokens": jnp.asarray(toks[:, :-1]), "labels": jnp.asarray(toks[:, 1:])}
+            key = jax.random.fold_in(base, t)
+            keys = exchange_keys(case, int(opt_state.count), key)
+            for k in range(K):
+                for ek in keys:
+                    a, b = jax.random.split(jax.random.fold_in(ek, k))
+                    draws[k].append(np.asarray(jax.random.uniform(a, (rows, BUCKET))))
+                    if mode == "two_phase":
+                        draws[k].append(np.asarray(jax.random.uniform(b, (rows // K, BUCKET))))
+            before = int(ex_state.step)
+            if t == 0:
+                wire_trace_start()
+            params, opt_state, ex_state, m = step(params, opt_state, ex_state, batch, key)
+            if t == 0:
+                trace = wire_trace_stop()
+            calls.append(int(ex_state.step) - before)
+            assert calls[-1] == len(keys), (t, calls[-1], len(keys))
+            for k in metrics:
+                metrics[k].append(float(m[k]))
+    for k, v in metrics.items():
+        out[k] = np.asarray(v, np.float64)
+    out["calls"] = np.asarray(calls)
+    out["opt_count"] = np.asarray(opt_state.count)
+    if name == "qgenx":
+        out["opt_sum_sq"] = np.asarray(opt_state.sum_sq)
+    for j, l in enumerate(jax.tree_util.tree_leaves(params)):
+        out[f"p_{j}"] = np.asarray(l)
+    for k in range(K):
+        for i, d in enumerate(draws[k]):
+            out[f"noise_{k}_{i}"] = d
+    out["wire_names"] = np.asarray([nm for nm, _ in trace])
+    out["wire_nbytes"] = np.asarray([nb for _, nb in trace], np.int64)
+    np.savez(out_path, **out)
+
+
+if __name__ == "__main__":
+    main(*sys.argv[1:])

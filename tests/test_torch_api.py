@@ -52,13 +52,13 @@ def test_constructors_take_no_default_device(make):
     dict(compressor="randk"), dict(compressor="ef-randk"),
     dict(compressor="ef21-topk"), dict(compressor="qgenx"),
     dict(quant=Q8, mode="leafwise"), dict(quant=Q8, level_schedule="qada"),
-    dict(quant=Q8, sync_every=2), dict(quant=Q8, recenter_every=3),
+    dict(quant=Q8, drift_probe=0), dict(quant=Q8, recenter_every=-1),
     dict(quant=Q8, num_buckets=2, overlap="bucketed"), dict(quant=Q8, allreduce_fallback=True),
     dict(quant=Q8, use_plan=False),
 ])
 def test_unported_exchange_options_are_rejected(kwargs):
-    # an unported value raises ValueError; a field the slice does not
-    # have yet is an unknown keyword, TypeError
+    # an unported (or invalid) value raises ValueError; a field the slice
+    # does not have yet is an unknown keyword, TypeError
     with pytest.raises((TypeError, ValueError)):
         ExchangeConfig(**kwargs)
 
@@ -114,7 +114,7 @@ def test_contradictory_compressor_flags_raise(argv):
 
 
 @pytest.mark.parametrize("argv", [["--compressor", "randk"], ["--optimizer", "sgd"],
-                                  ["--repeat-batch"]])
+                                  ["--guard"], ["--no-exchange-plan"]])
 def test_train_cli_has_no_unported_flags(argv, capsys):
     with pytest.raises(SystemExit):
         train.parser().parse_args(argv)

@@ -148,6 +148,8 @@ def test_plan_layout_and_packing_match(bits, mode, axis_size, purpose):
     np.testing.assert_array_equal(flat.numpy(), np.asarray(jplan.pack(jleaves)))
     for a, b in zip(tplan.unpack(flat, tleaves), tleaves):
         assert torch.equal(a, b)
+    for start, stop in ((0, tplan.total), (0, 1), (37, 901), (tplan.total - 70, tplan.total)):
+        assert torch.equal(tplan.pack_range(tleaves, start, stop), flat[start:stop])
     # the analytic wire bill of one exchange of this tree
     assert (tex.make_exchange(tcfg, _Comm()).wire_bytes_tree(tleaves, axis_size)
             == jex.make_exchange(jcfg).wire_bytes_tree(jleaves, axis_size))
