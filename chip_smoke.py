@@ -68,6 +68,16 @@ imports only ``repro_torch`` (from ``src/`` beside this file) and:
       to the first run's), with each save's and restore's bytes and
       seconds, the cost of ``coded_bits_tree``, step times and peak
       memory printed (``local_update_path``);
+   d. QAda adaptive levels at the same width: 4 qgenx ``de`` int8
+      two_phase steps with ``--level-schedule qada --level-update-every
+      2`` (8 exchange calls, 4 refreshes), the wire recorder on: the call
+      count, a final table moved from uniform and valid, ``wire_bytes``
+      each step 2 x (the analytic bytes + the histogram's 2048), the
+      recorder's ``qada_hist`` once a call, kernels 1-3 once a call, and
+      kernels 1 and 2 on the run's table bit-equal to their plain versions
+      (the bracket branch it takes is printed); the histogram pass's and
+      each refresh's ms, step times beside phase 4a's fixed-schedule run
+      and the peak are printed (``qada_path``);
    b. the WGAN-GP testbed (``repro_torch.launch.train_gan.run``, the
       paper's Section 5 at the reference's width: K = 3 workers, batch
       256 each, hidden 64) for 300 ExtraAdam steps in each of the fp32,
@@ -83,6 +93,17 @@ imports only ``repro_torch`` (from ``src/`` beside this file) and:
       the kernel timed at that shape (the ``gan-*`` rows of kernel 5: ``ms``
       is the kernel's device time a launch from ``torch.profiler``,
       ``wrapper_ms`` the wrapper's time a call back to back);
+   e. the paper's toy-VI testbed (``repro_torch.core.extragradient``
+      on ``repro_torch.core.vi`` problems, K = 4, T = 2048 a run): Fig. 4
+      (bilinear d = 16, Q-GenX ``de`` fp32 and uq8 against QSGDA) and the
+      compression arms on bilinear d = 32 (fp32, uq8, uq4, uq8 with QAda
+      every 32 steps), each arm's restricted gap, bits and ms a step
+      printed and its gap held to the same draws' run on the CPU port;
+      Q-GenX must beat QSGDA, QAda's levels move, and kernel 5 launch 2T
+      times per quantized arm; its first call of the uq8 d = 32 arm is
+      held to the plain version and timed at that [4 x 64] shape (the
+      ``toy-vi-uq8`` row: device time from ``torch.profiler``,
+      ``wrapper_ms``) (``toy_vi_path``);
 5. runs each kernel at its main-path shape (the flat exchange buffer of
    tinyllama-1.1b, 2,148,532 rows x 512): kernels 1, 2, 3 in int8 as
    two_phase chains them, kernels 1 and 4 in int4 as gather does, and
@@ -91,7 +112,8 @@ imports only ``repro_torch`` (from ``src/`` beside this file) and:
    ``tinyllama-buffer-*`` rows, a size no path gives kernel 5 (0
    launches; two windows of 10 calls, the second kept).  The device-PRNG
    variants of kernels 1, 2 and 5 run beside their host-noise kernels
-   (the ``/prng`` rows).
+   (the ``/prng`` rows), and kernels 1 (int8) and 2 run again on phase
+   4d's QAda table (the ``int8-qada`` / ``qada`` rows).
    Each output is held against the plain version's on the same inputs
    (payload bytes and kernel 5's estimates exactly equal, f32 within rtol
    1e-6), and each kernel is timed beside its bound and its plain
@@ -1019,6 +1041,285 @@ def local_update_path(torch, batch: int, seq: int) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 4d: QAda adaptive levels on the main-path exchange
+# ---------------------------------------------------------------------------
+
+
+QADA_STEPS, QADA_EVERY = 4, 2
+
+
+def bracket_branch(torch, levels) -> str:
+    """The bracket search kernels 1 and 2 take for this table: ``binary
+    search`` when an open cell (c, c + 1) / 256 of [0, 1] holds two interior
+    levels (``stage_tables`` in the CUDA source), else ``cell lookup``."""
+    interior = levels.detach().float().cpu()[1:-1]
+    for c in range(257):
+        lo = torch.tensor(c / 256, dtype=torch.float32)
+        hi = torch.tensor((c + 1) / 256, dtype=torch.float32)
+        if int((interior < hi).sum()) - int((interior <= lo).sum()) > 1:
+            return "binary search"
+    return "cell lookup"
+
+
+def qada_path(torch, batch: int, seq: int, shapes: list, fixed: dict) -> dict:
+    """Phase 4d: tinyllama-1.1b at full width (bf16 layers, K = 1) through
+    ``run()``: qgenx ``de``, int8 two_phase, host noise,
+    ``--level-schedule qada --level-update-every 2``, 4 steps (8 exchange
+    calls, 4 refreshes), the wire recorder on.  Holds: 8 calls counted
+    (``ExchangeState.step``); the final table moved from uniform, valid
+    (ends 0 and 1, strictly increasing); ``wire_bytes`` each step 2 x (the
+    analytic bytes + the histogram's 2048); the recorder's total equal and
+    ``qada_hist`` recorded once a call; kernels 1-3 once a call, no other;
+    finite losses; kernels 1 and 2 on the run's last table bit-equal to
+    their plain versions (q = inf) on 4096 rows.  The histogram pass
+    (``Exchange._tree_hist``) and each refresh (the host solve) are timed
+    with a device sync on both sides.  Prints the step times beside phase
+    4a's fixed-schedule run (``fixed``), the pass's and the refresh's ms
+    and the peak memory.  Returns the launch counts and the table."""
+    import numpy as np
+
+    from repro_torch.core import exchange as xmod
+    from repro_torch.core.exchange import make_exchange, wire_trace_start, wire_trace_stop
+    from repro_torch.core.exchange_plan import size_of
+    from repro_torch.core.quantization import uniform_levels, validate_levels
+    from repro_torch.kernels import cuda, ref
+    from repro_torch.kernels.dequant_reduce import dequant_reduce_requantize_blocks
+    from repro_torch.kernels.quantize import quantize_blocks
+    from repro_torch.launch.train import build_exchange_config, run
+
+    args = _train_args(arch="tinyllama-1.1b", dtype="bfloat16", batch=batch, seq=seq,
+                       device="cuda", optimizer="qgenx", method="de", compression="int8",
+                       compress_mode="two_phase", steps=QADA_STEPS, level_schedule="qada",
+                       level_update_every=QADA_EVERY)
+    ex_cfg = build_exchange_config(args)
+    ex = make_exchange(ex_cfg)
+    sizes = [size_of(s) for s in shapes]
+    per_call = ex.compressor.wire_bytes_tree(sizes, 1, ex_cfg) + 4 * ex_cfg.qada_bins
+    hist_ms, solve_ms, states = [], [], []
+    tree_hist, solve, advance = xmod.Exchange._tree_hist, xmod._qada_solve, xmod.Exchange._advance
+
+    def timed(fn, into):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            into.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapper
+
+    def recording_advance(self, state, local_hist=None):
+        out = advance(self, state, local_hist)
+        states.append(out)
+        return out
+
+    xmod.Exchange._tree_hist = timed(tree_hist, hist_ms)
+    xmod._qada_solve = timed(solve, solve_ms)
+    xmod.Exchange._advance = recording_advance
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launch_counts()
+        wire_trace_start()
+        out = run(args, log=lambda m: log(f"  {m}"), exchange=ex_cfg)
+        trace = wire_trace_stop()
+        counts = cuda.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        xmod.Exchange._tree_hist, xmod._qada_solve, xmod.Exchange._advance = \
+            tree_hist, solve, advance
+    calls = 2 * QADA_STEPS
+    last = states[-1]
+    if last.step != calls or len(states) != calls:
+        fail(f"phase 4d: ExchangeState.step {last.step} after {len(states)} calls, "
+             f"expected {calls}")
+    lv = last.levels
+    validate_levels(lv, ex_cfg.quant.num_levels)
+    uniform = uniform_levels(ex_cfg.quant.num_levels, lv.device)
+    if torch.allclose(lv, uniform, atol=1e-4) or out["levels"] != lv.tolist():
+        fail(f"phase 4d: the table did not move from uniform, or run() returned another: "
+             f"{lv.tolist()} vs {out['levels']}")
+    if out["wire_bytes"] != [2 * per_call] * QADA_STEPS:
+        fail(f"phase 4d wire_bytes {out['wire_bytes']} != 2 x {per_call} a step")
+    names = [n for n, _ in trace]
+    if sum(b for _, b in trace) != sum(out["wire_bytes"]) or names.count("qada_hist") != calls:
+        fail(f"phase 4d: the recorder saw {names} ({sum(b for _, b in trace)} bytes)")
+    want_counts = {k: (calls if k in ("quantize_blocks", "dequant_reduce_requantize_blocks",
+                                      "dequantize_blocks") else 0) for k in cuda.KERNELS}
+    if counts != want_counts:
+        fail(f"phase 4d launches {counts} != {want_counts}")
+    if not all(math.isfinite(v) for v in out["loss"]):
+        fail(f"phase 4d: non-finite loss {out['loss']}")
+    if len(solve_ms) != calls // QADA_EVERY or len(hist_ms) != calls:
+        fail(f"phase 4d: {len(solve_ms)} refreshes and {len(hist_ms)} histogram passes")
+    # kernels 1 and 2 on the run's table, against their plain versions
+    s = ex_cfg.quant.num_levels
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(41)
+    x = torch.randn((4096, 512), generator=gen, device="cuda")
+    r = torch.rand((4096, 512), generator=gen, device="cuda")
+    kw = dict(num_symbols=s + 2, q_is_inf=True, bits=8)
+    pk, nk = quantize_blocks(x, r, lv, **kw)
+    pp, np_ = ref.quantize_blocks_plain(x, r, lv, **kw)
+    P, N = pp.unsqueeze(0), np_.unsqueeze(0)
+    got = dequant_reduce_requantize_blocks(P, N, lv, r, num_workers=1, **kw)
+    want = ref.dequant_reduce_requantize_blocks_plain(P, N, lv, r, **kw)
+    if not (torch.equal(pk, pp) and torch.equal(nk, np_) and torch.equal(got[0], want[0])
+            and torch.equal(got[1], want[1])):
+        fail("phase 4d: kernels 1 / 2 on the QAda table differ from their plain versions")
+    branch = bracket_branch(torch, lv)
+    log(f"  phase 4d: loss={out['loss']} wire_bytes={out['wire_bytes'][0]:.0f} "
+        f"step_s={out['step_s']} peak_bytes={peak} launches={counts}")
+    log(f"  phase 4d: final table {np.round(np.asarray(lv.tolist()), 6).tolist()}; kernels 1 "
+        f"and 2 on it bit-equal to their plain versions ({branch})")
+    log(f"phase 4d: qada de int8 two_phase step_s {out['step_s']} vs fixed {fixed['step_s']}; "
+        f"histogram pass {hist_ms} ms a call (median {sorted(hist_ms)[len(hist_ms) // 2]:.2f}); "
+        f"refresh {solve_ms} ms; peak {peak} bytes (fixed: {fixed['peak_bytes']})")
+    return {"counts": counts, "levels": lv, "branch": branch, "step_s": out["step_s"],
+            "hist_ms": hist_ms, "solve_ms": solve_ms}
+
+
+# ---------------------------------------------------------------------------
+# phase 4e: the toy-VI testbed (Q-GenX loop, QSGDA) on the card
+# ---------------------------------------------------------------------------
+
+
+TOY_K, TOY_T = 4, 2048
+TOY_GAP_RTOL = 1e-2  # card vs CPU port, the same draws (see toy_vi_path)
+
+
+def toy_arms():
+    """(name, problem, sigma, config or None for QSGDA) of phase 4e."""
+    from repro_torch.core.extragradient import QGenXConfig
+    from repro_torch.core.quantization import QuantConfig
+    from repro_torch.core.vi import bilinear_saddle
+
+    uq8 = QuantConfig(num_levels=15, bits=8, bucket_size=64, q_norm=math.inf)
+    uq4 = QuantConfig(num_levels=5, bits=4, bucket_size=64, q_norm=math.inf)
+    fig4, arms = bilinear_saddle(d=16, seed=6), bilinear_saddle(d=32, seed=4)
+    de = lambda **kw: QGenXConfig(variant="de", num_workers=TOY_K, **kw)  # noqa: E731
+    return [("fig4-qgenx-fp32", fig4, 0.1, de()), ("fig4-qgenx-uq8", fig4, 0.1, de(quant=uq8)),
+            ("fig4-qsgda", fig4, 0.1, None),
+            ("d32-fp32", arms, 0.5, de()), ("d32-uq8", arms, 0.5, de(quant=uq8)),
+            ("d32-uq4", arms, 0.5, de(quant=uq4)),
+            ("d32-uq8-qada", arms, 0.5, de(quant=uq8, level_update_every=32))]
+
+
+def _toy_run(torch, vi, sigma, cfg, device, seed):
+    """One arm on ``device``: (restricted gap of the ergodic iterate, state
+    or None, seconds)."""
+    from repro_torch.core.extragradient import qgenx_run, qsgda_run
+    from repro_torch.core.vi import absolute_noise_oracle, restricted_gap
+
+    oracle = absolute_noise_oracle(vi, sigma, device)
+    x0 = torch.from_numpy(vi.z_star.astype("float32")) + 1.0
+    noise = _NumpyNoise(seed)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if cfg is None:
+        _, x_avg = qsgda_run(x0, oracle, noise, TOY_T, num_workers=TOY_K, lr=0.05, device=device)
+        st = None
+    else:
+        st = qgenx_run(x0, oracle, cfg, noise, TOY_T, device)
+        x_avg = st.x_avg
+    if device == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return restricted_gap(vi, x_avg), st, dt
+
+
+def toy_vi_path(torch) -> tuple:
+    """Phase 4e: the paper's toy-VI testbed on the card, K = 4 simulated
+    workers, T = 2048 steps per arm (sizes of ``tests/test_extragradient.py``):
+    Fig. 4's bilinear_saddle(d=16, seed=6) with absolute noise sigma = 0.1,
+    Q-GenX ``de`` fp32 and uq8 against QSGDA at lr 0.05; then
+    bilinear_saddle(d=32, seed=4) (64 operator coordinates), sigma = 0.5,
+    ``de`` fp32, uq8 (s = 15, bucket 64, q = inf), uq4 (s = 5) and uq8 with
+    QAda every 32 steps.  Every arm draws from a numpy stream (the same
+    draws on any device) and runs again on the CPU port.  Fails unless
+    Q-GenX's gap is below QSGDA's, the QAda arm's levels moved from
+    uniform, kernel 5 launched 2T times in each quantized arm (one launch
+    per exchange for the K stacked duals) and never elsewhere, and each
+    gap equals the CPU run's within rtol ``TOY_GAP_RTOL`` (the operator's
+    f32 products sum in another order on the card, which may move a
+    stochastic rounding over 2048 steps).  The uq8 d = 32 arm's first
+    kernel-5 call is kept, held bit-equal to the plain version and timed
+    at that [4 x 64] shape (device time from ``torch.profiler``, wrapper
+    time).  Returns (kernel 5 launches, the toy-shape kernel row)."""
+    from repro_torch.core import exchange_plan
+    from repro_torch.core.quantization import uniform_levels
+    from repro_torch.kernels import cuda, ref
+
+    wrapper = exchange_plan.quantize_dequantize_segments
+    first = {}
+
+    def recorder(x2d, noise, tables, seg_ids, **kw):
+        out = wrapper(x2d, noise, tables, seg_ids, **kw)
+        if arm not in first:
+            first[arm] = ([t.clone() if t is not None else None
+                           for t in (x2d, noise, tables, seg_ids)], kw, out.clone())
+        return out
+
+    gaps, launches = {}, 0
+    exchange_plan.quantize_dequantize_segments = recorder
+    try:
+        for i, (arm, vi, sigma, cfg) in enumerate(toy_arms()):
+            cuda.reset_launch_counts()
+            gap, st, dt = _toy_run(torch, vi, sigma, cfg, "cuda", 100 + i)
+            counts = cuda.launch_counts()
+            n = counts["quantize_dequantize_segments"]
+            quantized = cfg is not None and cfg.quant is not None
+            if n != (2 * TOY_T if quantized else 0) or any(
+                    v for k, v in counts.items() if k != "quantize_dequantize_segments"):
+                fail(f"phase 4e arm {arm}: launches {counts}, expected kernel 5 "
+                     f"{2 * TOY_T if quantized else 0} times and nothing else")
+            launches += n
+            cpu_gap, _, cpu_dt = _toy_run(torch, vi, sigma, cfg, "cpu", 100 + i)
+            if not (math.isfinite(gap) and abs(gap - cpu_gap) <= TOY_GAP_RTOL * abs(cpu_gap)):
+                fail(f"phase 4e arm {arm}: gap {gap!r} on the card vs {cpu_gap!r} on the CPU")
+            bits = float(st.bits_sent) if st is not None else float("nan")
+            gaps[arm] = gap
+            extra = ""
+            if cfg is not None and cfg.level_update_every:
+                lv = st.levels
+                if torch.allclose(lv, uniform_levels(lv.shape[0] - 2, lv.device), atol=1e-4):
+                    fail(f"phase 4e arm {arm}: levels {lv.tolist()} did not move from uniform")
+                extra = f" levels={[round(v, 5) for v in lv.tolist()]}"
+            log(f"  toy {arm}: restricted_gap={gap!r} (cpu {cpu_gap!r}, rel diff "
+                f"{abs(gap - cpu_gap) / abs(cpu_gap):.2e}) bits_sent={bits!r} "
+                f"ms_per_step={dt / TOY_T * 1e3:.4f} (cpu {cpu_dt / TOY_T * 1e3:.4f}) "
+                f"kernel5_launches={n}{extra}")
+    finally:
+        exchange_plan.quantize_dequantize_segments = wrapper
+    if not gaps["fig4-qgenx-fp32"] < gaps["fig4-qsgda"]:
+        fail(f"phase 4e: Q-GenX gap {gaps['fig4-qgenx-fp32']} is not below QSGDA's "
+             f"{gaps['fig4-qsgda']}")
+    log(f"phase 4e: Fig. 4 gaps Q-GenX fp32 {gaps['fig4-qgenx-fp32']!r}, uq8 "
+        f"{gaps['fig4-qgenx-uq8']!r}, QSGDA {gaps['fig4-qsgda']!r}")
+    # the path's own kernel-5 call at the toy shape, against the plain version, timed
+    (x, r, tables, seg), kw, got = first["d32-uq8"]
+    if tuple(x.shape) != (TOY_K, 64) or kw["num_symbols"] != (17,):
+        fail(f"phase 4e: kernel 5 called on {tuple(x.shape)} with {kw}")
+    want = ref.quantize_dequantize_segments_plain(x, r, tables, seg, **kw)
+    tag = f"toy VI uq8 [{TOY_K} x 64] T=1 ns=(17,)"
+    err = _check_segment(torch, f"{tag} (the path's output)", got, want, True)
+    wrapper_ms, again = _time_ms(torch, lambda: wrapper(x, r, tables, seg, **kw), 200)
+    _check_segment(torch, f"{tag} (timed)", again, want, True)
+    ms = device_ms(torch, lambda: wrapper(x, r, tables, seg, **kw), "segment_qdq_kernel", 200)
+    plain, _ = _time_ms(torch, lambda: ref.quantize_dequantize_segments_plain(
+        x, r, tables, seg, **kw), 50)
+    n = x.numel()
+    row = kernel_row("quantize_dequantize_segments/toy-vi-uq8", launches, ms, plain, err,
+                     12 * n + 4 * x.shape[0] + 4 * tables.numel(), n * (10 + 17),
+                     f"{tag}, the toy-VI path's shape; device time")
+    row["wrapper_ms"] = wrapper_ms
+    log(f"    wrapper (host and device, back to back): {wrapper_ms:.4f} ms a call")
+    return launches, row
+
+
 GAN_TABLES = {"uq8": (17,), "uq4": (7,), "layerwise": (7, 17)}  # kernel 5's num_symbols
 GAN_PRNG_ARM = "uq8-prng"
 
@@ -1144,6 +1445,12 @@ class _NumpyNoise:
         import torch
 
         a = self.rng.random_sample(tuple(shape)).astype("float32")
+        return torch.from_numpy(a).to(device)
+
+    def rademacher(self, shape, device):
+        import torch
+
+        a = (2 * self.rng.randint(0, 2, size=tuple(shape)) - 1).astype("float32")
         return torch.from_numpy(a).to(device)
 
 
@@ -1295,7 +1602,8 @@ def _plain_chunks(torch, fn, rows, chunk=1 << 18):
     return torch.cat(parts)
 
 
-def kernel_times(torch, launches: dict, errs: dict, shapes: list, int_ops: float) -> list:
+def kernel_times(torch, launches: dict, errs: dict, shapes: list, int_ops: float,
+                 qada: dict) -> list:
     """Each kernel at the shape the main path gives it: the tinyllama-1.1b
     flat exchange buffer (K = 1, bucket 512, q = inf); kernels 1-3 as the
     int8 two_phase exchange runs them (kernel 2 and 3 on kernel 1's and
@@ -1310,7 +1618,9 @@ def kernel_times(torch, launches: dict, errs: dict, shapes: list, int_ops: float
     kernel 5's estimates exactly equal, f32 within rtol 1e-6);
     ``max_abs_err`` is the larger of this and phase 3's.  ``launches`` is
     each kernel's count over the main path it runs on; ``int_ops`` the
-    device draw's integer operations per coordinate."""
+    device draw's integer operations per coordinate.  Kernels 1 (int8) and 2
+    run again on phase 4d's QAda table (``qada``), timed the same way,
+    their ``launches`` phase 4d's."""
     from repro_torch.configs import get_config
     from repro_torch.core.quantization import uniform_levels
     from repro_torch.kernels import ref
@@ -1406,6 +1716,37 @@ def kernel_times(torch, launches: dict, errs: dict, shapes: list, int_ops: float
     err = _close(torch, "dequantize main-path shape", got, want)
     entry("dequantize_blocks", bits, ms, plain, err, n + 4 * rows + 4 * n, 3 * n)
     del payload, norms, got, want
+    torch.cuda.empty_cache()
+
+    # kernels 1 and 2 on phase 4d's QAda table (its bracket search)
+    lv = qada["levels"]
+    kw = dict(num_symbols=s + 2, q_is_inf=True, bits=bits)
+    x = torch.randn((rows, bucket), generator=gen, device=dev)
+    r = torch.rand((rows, bucket), generator=gen, device=dev)
+    what = f"int8, phase 4d's QAda table ({qada['branch']})"
+    ms, got = _time_ms(torch, lambda: quantize_blocks(x, r, lv, **kw), 10)
+    plain, want = _time_ms(torch, lambda: ref.quantize_blocks_plain(x, r, lv, **kw), 2)
+    del x
+    torch.cuda.empty_cache()
+    err = _deq_err(torch, "quantize int8 QAda table main-path shape", got, want, lv, bits)
+    del want
+    entry("quantize_blocks/int8-qada", bits, ms, plain, err,
+          4 * n + 4 * n + n + 4 * rows, n * (10 + 2 * s), what=what,
+          runs=qada["counts"]["quantize_blocks"])
+    P, N = got[0].unsqueeze(0), got[1].unsqueeze(0)
+    del got
+    ms, got = _time_ms(torch, lambda: dequant_reduce_requantize_blocks(
+        P, N, lv, r, num_workers=1, **kw), 10)
+    plain, want = _time_ms(torch, lambda: ref.dequant_reduce_requantize_blocks_plain(
+        P, N, lv, r, **kw), 2)
+    del r, P, N
+    torch.cuda.empty_cache()
+    err = _deq_err(torch, "dequant_reduce_requantize QAda table main-path shape", got, want,
+                   lv, bits)
+    entry("dequant_reduce_requantize_blocks/qada", bits, ms, plain, err,
+          n + 4 * rows + 4 * n + n + 4 * rows, n * (14 + 2 * s), what=what,
+          runs=qada["counts"]["dequant_reduce_requantize_blocks"])
+    del got, want
     torch.cuda.empty_cache()
 
     # int4 gather (s = 5): kernel 1 -> kernel 4
@@ -1565,6 +1906,15 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # phase 4d: QAda adaptive levels on the main-path exchange, at full width
+    t0 = time.perf_counter()
+    qada = qada_path(torch, args.batch, args.seq, shapes, by_run["int8"])
+    for k, n in qada["counts"].items():
+        launches[k] += n
+    log(f"phase 4d took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # phase 4b: the WGAN-GP testbed, every ported arm, and uq8 with the device PRNG
     t0 = time.perf_counter()
     gan, gan_rows = gan_path(torch, int_ops)
@@ -1573,9 +1923,15 @@ def main() -> None:
     launches["quantize_dequantize_segments/prng"] = gan[GAN_PRNG_ARM][1]
     log(f"phase 4b took {time.perf_counter() - t0:.1f} s")
 
+    # phase 4e: the toy-VI testbed (Fig. 4 and the compression arms) over kernel 5
+    t0 = time.perf_counter()
+    toy_launches, toy_row = toy_vi_path(torch)
+    launches["quantize_dequantize_segments"] += toy_launches
+    log(f"phase 4e took {time.perf_counter() - t0:.1f} s")
+
     # phase 5: kernel times at the main-path shapes
     t0 = time.perf_counter()
-    rows = kernel_times(torch, launches, errs, shapes, int_ops) + gan_rows
+    rows = kernel_times(torch, launches, errs, shapes, int_ops, qada) + gan_rows + [toy_row]
     log(f"phase 5 took {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": rows}), flush=True)

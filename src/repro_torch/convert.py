@@ -20,7 +20,11 @@ reference's six children (``step`` a host int).  These are the trees
 them), and :func:`opt_state_from_jax` / :func:`ex_state_from_jax` take a
 state of either package's structure (the reference's NamedTuple /
 ``ExchangeState`` with numpy leaves, or a restored tree) back into the
-port's state on a device.
+port's state on a device.  :func:`qgenx_state_to_jax` /
+:func:`qgenx_state_from_jax` carry the toy-VI loop's
+:class:`~repro_torch.core.extragradient.QGenXState` the same two ways
+(its nine fields; ``t`` a host int in the port, an int32 0-d array in the
+reference).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.exchange import ExchangeState
+from repro_torch.core.extragradient import QGenXState
 from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
 from repro_torch.optim.optimizers import AdamState
 from repro_torch.optim.qgenx import QGenXOptState
@@ -198,3 +203,22 @@ def ex_state_from_jax(tree, device) -> ExchangeState:
     step = vals.pop("step")
     step = int(np.asarray(step.cpu() if isinstance(step, torch.Tensor) else step))
     return ExchangeState(step=step, **{f: _tensor(v, device) for f, v in vals.items()})
+
+
+_QGENX_FIELDS = ("x", "y", "sum_sq", "prev_half", "levels", "x_avg", "t", "bits_sent",
+                 "ef_err")
+
+
+def qgenx_state_to_jax(state: QGenXState) -> QGenXState:
+    """The toy loop's state with numpy leaves (``t`` as an int32 0-d
+    array, as the reference holds it)."""
+    return QGenXState(*(to_numpy(getattr(state, f)) for f in _QGENX_FIELDS))
+
+
+def qgenx_state_from_jax(tree, device) -> QGenXState:
+    """A reference ``QGenXState`` (numpy or tensor leaves) -> the port's on
+    ``device``, ``t`` as a host int."""
+    vals = {f: getattr(tree, f) for f in _QGENX_FIELDS}
+    t = vals.pop("t")
+    t = int(np.asarray(t.cpu() if isinstance(t, torch.Tensor) else t))
+    return QGenXState(t=t, **{f: _tensor(v, device) for f, v in vals.items()})

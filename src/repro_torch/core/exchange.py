@@ -43,12 +43,26 @@ The train step's local-update fields ``sync_every`` / ``drift_probe`` /
 ``recenter_every`` live in :class:`ExchangeConfig` as in the reference;
 :mod:`repro_torch.launch.steps` reads them.
 
+QAda (``level_schedule="qada"``, Section 3.3): every exchange call adds
+the weighted histogram of the exchanged tree's normalized coordinates
+(:mod:`repro_torch.core.adaptive_levels`, per leaf, each leaf padded to
+buckets on its own, on the tree's device) to ``ExchangeState.hist``,
+merged over the workers with one all-reduce (recorded as ``qada_hist``
+and billed at ``4 * qada_bins`` bytes a call); the call that completes a
+period of ``level_update_every`` calls solves new level tables from it on
+the host and zeroes it.  ``ExchangeState.step`` is a host int, so the
+refresh is a host branch and the solve is paid on refresh calls only.
+A non-finite histogram or a solved table that fails
+:func:`~repro_torch.core.quantization.validate_levels` raises
+``ValueError``; the old table is never kept in its place.  The flat
+per-vector ``compress`` / ``compress_with_levels`` (the toy-VI loop's
+estimate) is ``compress_tree`` of one tensor, and ``qada_propose`` one
+refresh from the caller's vectors.
+
 Not ported, and rejected by :class:`ExchangeConfig` (an unported value
 raises ``ValueError``, an unported field ``TypeError``): the randk and
-error-feedback compressors, mode ``leafwise``, QAda level schedules,
-bucketed overlap and the unplanned layout (``use_plan``).  The flat
-per-vector ``compress`` is not ported either: :class:`Exchange` has no
-such method.
+error-feedback compressors, mode ``leafwise``, bucketed overlap and the
+unplanned layout (``use_plan``).
 """
 
 from __future__ import annotations
@@ -61,6 +75,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import adaptive_levels as qada
 from repro_torch.core import exchange_plan as xplan
 from repro_torch.core.coding import C_B
 from repro_torch.core.noise import draw_rounding
@@ -69,6 +84,7 @@ from repro_torch.core.quantization import (
     bucket_norms,
     pad_to_buckets,
     uniform_levels,
+    validate_levels,
 )
 from repro_torch.core.tree import tree_flatten, tree_unflatten
 from repro_torch.kernels.dequant_reduce import (
@@ -151,7 +167,7 @@ class ExchangeConfig:
     """The exchange's static configuration (reference field names).
 
     Only the ported fields exist: a field of the reference that is not
-    ported yet (``allreduce_fallback``, ``level_schedule``, ...) is an unknown
+    ported yet (``allreduce_fallback``, ``use_plan``, ...) is an unknown
     keyword and raises ``TypeError``; an unported value of a ported field
     raises ``ValueError``.  ``quant`` is the qgenx quantizer, or
     layerwise's low-bit one for leaves above ``layerwise_threshold``
@@ -169,6 +185,12 @@ class ExchangeConfig:
     extra wire traffic, counted); ``recenter_every`` — every
     ``recenter_every``-th step the iterates are re-centered through this
     exchange (0 = never).
+
+    QAda: ``level_schedule`` ``"fixed"`` | ``"qada"``; under ``qada`` the
+    level tables are refreshed every ``level_update_every`` exchange calls
+    (required > 0) from a ``qada_bins``-bin histogram, by
+    ``qada_sweeps`` coordinate-descent sweeps of ``qada_bisect_iters``
+    bisection steps.
     """
 
     compressor: str = "qgenx"
@@ -180,6 +202,11 @@ class ExchangeConfig:
     sync_every: int = 1
     drift_probe: int = 4096
     recenter_every: int = 0
+    level_schedule: str = "fixed"
+    level_update_every: int = 0
+    qada_bins: int = 512
+    qada_sweeps: int = 2
+    qada_bisect_iters: int = 20
 
     def __post_init__(self):
         if self.compressor not in COMPRESSORS:
@@ -197,18 +224,22 @@ class ExchangeConfig:
             raise ValueError(
                 f"recenter_every must be >= 0, got {self.recenter_every}"
             )
+        if self.level_schedule not in ("fixed", "qada"):
+            raise ValueError(f"unknown level_schedule {self.level_schedule!r}")
+        if self.level_schedule == "qada" and self.level_update_every <= 0:
+            raise ValueError("level_schedule='qada' needs level_update_every > 0")
 
 
 @dataclasses.dataclass
 class ExchangeState:
     """Explicit exchange state, threaded through the train step.
 
-    The reference's six children are kept so later slices need no
-    reshaping: ``levels`` (primary level table), ``levels_lo``
-    (layerwise low-bit table), ``hist`` (QAda statistics), ``step`` (pmean
-    calls made — a host int here, read without a device sync), ``error``
-    (error-feedback memory) and ``pending`` (defer_tail slot); the last
-    three are [1] placeholders in this slice.
+    The reference's six children: ``levels`` (primary level table),
+    ``levels_lo`` (layerwise low-bit table), ``hist`` (QAda statistics
+    since the last refresh: ``[qada_bins]`` under the qada schedule, a
+    [1] placeholder otherwise), ``step`` (pmean calls made — a host int
+    here, read without a device sync), ``error`` (error-feedback memory)
+    and ``pending`` (defer_tail slot); the last two are [1] placeholders.
     """
 
     levels: torch.Tensor
@@ -511,6 +542,10 @@ class QgenxCompressor(NoneCompressor):
     def compress_wire_bytes(self, n, cfg):
         return float(cfg.quant.payload_bytes(n))
 
+    def refresh_tables(self, levels, levels_lo, hist, cfg):
+        """QAda refresh of the primary table from merged statistics."""
+        return _qada_solve(levels, hist, cfg), levels_lo
+
 
 class LayerwiseCompressor(QgenxCompressor):
     """Per-leaf bit-width policy: leaves above ``layerwise_threshold``
@@ -577,8 +612,27 @@ class LayerwiseCompressor(QgenxCompressor):
         lo, hi = self._cfgs(cfg)
         return float((lo if n > cfg.layerwise_threshold else hi).payload_bytes(n))
 
+    def refresh_tables(self, levels, levels_lo, hist, cfg):
+        """Both tables adapt from the same (table-independent) histogram."""
+        return _qada_solve(levels, hist, cfg), _qada_solve(levels_lo, hist, cfg)
+
 
 _COMPRESSORS = {c.name: c() for c in (NoneCompressor, QgenxCompressor, LayerwiseCompressor)}
+
+
+def _qada_solve(levels: torch.Tensor, hist: torch.Tensor, cfg: ExchangeConfig) -> torch.Tensor:
+    """One QAda solve (:func:`~repro_torch.core.adaptive_levels.optimize_levels`
+    on the host); raises ``ValueError`` on a non-finite histogram or a
+    table that fails ``validate_levels``."""
+    if not bool(torch.isfinite(hist).all()):
+        raise ValueError("QAda histogram is not finite: no level table can be solved")
+    new = qada.optimize_levels(levels, hist, sweeps=cfg.qada_sweeps,
+                               bisect_iters=cfg.qada_bisect_iters)
+    try:
+        validate_levels(new, levels.shape[0] - 2)
+    except ValueError as e:
+        raise ValueError(f"QAda solved an invalid level table {new.tolist()}: {e}") from None
+    return new
 
 
 # ---------------------------------------------------------------------------
@@ -603,8 +657,65 @@ class Exchange:
     def init_state(self, device) -> ExchangeState:
         lv, lv_lo = self.compressor.init_levels(self.cfg, device)
         ph = torch.zeros((1,), dtype=torch.float32, device=device)
-        return ExchangeState(levels=lv, levels_lo=lv_lo, hist=ph.clone(), step=0,
-                             error=ph.clone(), pending=ph.clone())
+        bins = self.cfg.qada_bins if self.cfg.level_schedule == "qada" else 1
+        return ExchangeState(levels=lv, levels_lo=lv_lo,
+                             hist=torch.zeros((bins,), dtype=torch.float32, device=device),
+                             step=0, error=ph.clone(), pending=ph)
+
+    # -- QAda ------------------------------------------------------------
+
+    def _qada_active(self) -> bool:
+        return self.cfg.level_schedule == "qada" and self.compressor.has_levels
+
+    def _hist_quant(self) -> QuantConfig:
+        return self.cfg.quant if self.cfg.quant is not None else _DEFAULT_QUANT_LO
+
+    def _tree_hist(self, leaves) -> torch.Tensor:
+        """Sufficient statistics of a leaf list, leaf by leaf: each leaf
+        padded to buckets of the histogram quantizer on its own (not the
+        plan's shared tail), the per-leaf histograms added in leaf order."""
+        q = self._hist_quant()
+        hist = None
+        for g in leaves:
+            v2d, _ = pad_to_buckets(g.reshape(-1).float(), q.bucket_size)
+            h = qada.normalized_coord_histogram(v2d, bucket_norms(v2d, q.q_norm),
+                                                bins=self.cfg.qada_bins)
+            del v2d
+            hist = h if hist is None else hist + h
+        return hist
+
+    def _advance(self, state: ExchangeState, local_hist=None) -> ExchangeState:
+        """Bump the call counter; with QAda statistics, merge them over the
+        workers (one all-reduce, recorded as ``qada_hist``) and, on the
+        call that completes a period, refresh every table the compressor
+        carries from the merged histogram and zero it."""
+        if local_hist is None:
+            return dataclasses.replace(state, step=state.step + 1)
+        record_wire("qada_hist", local_hist)
+        hist = state.hist + self.comm.all_reduce_sum(local_hist)
+        levels, levels_lo = state.levels, state.levels_lo
+        every = self.cfg.level_update_every
+        if state.step % every == every - 1:
+            levels, levels_lo = self.compressor.refresh_tables(levels, levels_lo, hist,
+                                                               self.cfg)
+            hist = torch.zeros_like(hist)
+        return dataclasses.replace(state, levels=levels, levels_lo=levels_lo, hist=hist,
+                                   step=state.step + 1)
+
+    def qada_propose(self, levels: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """One QAda refresh proposal from fresh vectors ``v`` (any shape
+        whose trailing dim is the coordinate dim; rows of
+        ``min(bucket, v.shape[-1])``), solved on the host."""
+        q = self._hist_quant()
+        v2d = v.reshape(-1, min(q.bucket_size, v.shape[-1])).float()
+        hist = qada.normalized_coord_histogram(v2d, bucket_norms(v2d, q.q_norm),
+                                               bins=self.cfg.qada_bins)
+        return _qada_solve(levels, hist, self.cfg)
+
+    def _qada_wire_bytes(self) -> float:
+        """The qada schedule all-reduces the [qada_bins] f32 histogram once
+        per exchange call."""
+        return 4.0 * self.cfg.qada_bins if self._qada_active() else 0.0
 
     def plan_for(self, leaves, purpose: str = "pmean", axis_size=None) -> xplan.ExchangePlan:
         """The static plan of this leaf list under the compressor's segment
@@ -625,7 +736,8 @@ class Exchange:
         segment of that buffer."""
         leaves, spec = tree_flatten(tree)
         out = self.compressor.pmean_leaves(leaves, self, state, noise)
-        return tree_unflatten(spec, out), dataclasses.replace(state, step=state.step + 1)
+        hist = self._tree_hist(leaves) if self._qada_active() else None
+        return tree_unflatten(spec, out), self._advance(state, hist)
 
     def compress_tree(self, tree, noise, levels: Optional[torch.Tensor] = None,
                       workers: bool = False):
@@ -641,16 +753,33 @@ class Exchange:
         out = self.compressor.compress_tree(leaves, self.cfg, levels, noise, int(workers))
         return tree_unflatten(spec, out)
 
+    def compress(self, v: torch.Tensor, state: ExchangeState, noise,
+                 workers: bool = False) -> torch.Tensor:
+        """Per-worker unbiased estimate of one flat vector under
+        ``state.levels`` (no collectives)."""
+        return self.compress_with_levels(v, state.levels, noise, workers)
+
+    def compress_with_levels(self, v: torch.Tensor, levels: torch.Tensor, noise,
+                             workers: bool = False) -> torch.Tensor:
+        """:meth:`compress` with a level table the caller carries (the
+        Q-GenX loop keeps it in ``QGenXState``): the reference's flat
+        per-vector quantize∘dequantize, padded to whole buckets.  With
+        ``workers=True`` ``v`` is ``[W, n]``, W workers' vectors in one
+        launch of kernel 5 and one noise draw each, in worker order."""
+        return self.compress_tree(v, noise, levels, workers)
+
     def wire_bytes(self, n: int, axis_size: int) -> float:
         """Analytic collective-operand bytes per worker for one pmean of n
-        coordinates (none: the ring all-reduce's 2(K-1)/K * 4n)."""
-        return self.compressor.wire_bytes(n, axis_size, self.cfg)
+        coordinates (none: the ring all-reduce's 2(K-1)/K * 4n; qada adds
+        the histogram's ``4 * qada_bins``)."""
+        return self.compressor.wire_bytes(n, axis_size, self.cfg) + self._qada_wire_bytes()
 
     def wire_bytes_tree(self, tree, axis_size: int) -> float:
         """The same for one ``pmean_tree`` of this pytree (the layerwise
         policy bills each size group as its own exchange)."""
         sizes = [xplan.size_of(l) for l in tree_flatten(tree)[0]]
-        return self.compressor.wire_bytes_tree(sizes, axis_size, self.cfg)
+        return (self.compressor.wire_bytes_tree(sizes, axis_size, self.cfg)
+                + self._qada_wire_bytes())
 
     def compress_wire_bytes(self, n: int) -> float:
         """Bytes one worker broadcasts for one compressed n-vector."""

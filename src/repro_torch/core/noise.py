@@ -12,7 +12,9 @@ function of the port that rounds stochastically takes a noise source:
   for, checking each shape.
 
 Both also give standard normal draws (``normal``), which the WGAN-GP
-testbed takes its latent samples from, and 64-bit seeds (``seed``), which
+testbed takes its latent samples from, Rademacher signs (``rademacher``:
++-1 in f32), which the toy-VI oracles take their noise from, and 64-bit
+seeds (``seed``), which
 the device-PRNG exchange (``ExchangeConfig(use_device_prng=True)``) hands
 to the kernels in place of a noise buffer: the kernel draws its own
 rounding noise with Philox from that seed.
@@ -62,6 +64,10 @@ class GeneratorNoise:
         return torch.randn(tuple(shape), generator=self.generator, device=device,
                            dtype=torch.float32)
 
+    def rademacher(self, shape, device) -> torch.Tensor:
+        bits = torch.randint(0, 2, tuple(shape), generator=self.generator, device=device)
+        return (2 * bits - 1).to(torch.float32)
+
     def seed(self) -> int:
         """A 64-bit seed for the device PRNG (two 32-bit words)."""
         lo, hi = torch.randint(0, 1 << 32, (2,), generator=self._seeds,
@@ -104,7 +110,7 @@ class ReplayNoise:
                              f"asks for {tuple(shape)}")
         return t.to(device=device, dtype=torch.float32)
 
-    normal = uniform  # a replayed array is whatever the caller drew
+    normal = rademacher = uniform  # a replayed array is whatever the caller drew
 
     @property
     def remaining(self) -> int:

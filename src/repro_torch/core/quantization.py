@@ -5,7 +5,15 @@ Port of ``repro/core/quantization.py``.  A vector is sent as a signed level
 index per coordinate (int8, or two 4-bit indices per byte) plus one f32
 L^q norm per bucket of ``bucket_size`` coordinates.  The quantize and
 dequantize passes themselves are the exchange kernels in
-:mod:`repro_torch.kernels`.
+:mod:`repro_torch.kernels`: the flat :func:`quantize` / :func:`dequantize`
+run kernels 1 and 3 (through :mod:`repro_torch.kernels.ops`, the port of
+TPU wrapper B7) and :func:`quantize_dequantize` runs kernel 5 with one
+table; a CUDA tensor launches them, a CPU tensor takes their plain
+versions.  Every stochastic rounding takes its uniform noise from a noise
+source (:mod:`repro_torch.core.noise`), one ``[nb, bucket]`` draw per
+vector (per leaf of a pytree, in leaf order), where the reference draws
+``jax.random.uniform(key, u.shape)``.  :func:`theorem1_epsilon_q` is the
+reference's numpy bound as it is.
 """
 
 from __future__ import annotations
@@ -15,6 +23,12 @@ import math
 
 import numpy as np
 import torch
+
+from repro_torch.core.tree import tree_flatten, tree_unflatten
+
+# kernel 1 rounds up where r < xi; with every r at the largest f32 below
+# 0.5 that is xi >= 0.5, the reference's round-to-nearest
+_NEAREST_NOISE = float(np.nextafter(np.float32(0.5), np.float32(0.0)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,3 +149,169 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
     a = torch.where(a >= 8, a - 16, a)
     b = torch.where(b >= 8, b - 16, b)
     return torch.stack([a, b], dim=-1).reshape(-1)
+
+
+# ---------------------------------------------------------------------------
+# Quantize / dequantize (flat vectors)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Quantized:
+    """A quantized flat vector: ``payload`` int8 signed level indices,
+    ``[nb * bucket]`` (8 bit) or packed two per byte ``[nb * bucket // 2]``
+    (4 bit); ``norms`` f32 ``[nb]``; ``n`` the unpadded length."""
+
+    payload: torch.Tensor
+    norms: torch.Tensor
+    n: int
+
+    def wire_bytes(self) -> int:
+        return int(self.payload.numel() * self.payload.element_size()
+                   + self.norms.numel() * 4)
+
+
+def _stochastic_round_indices(u: torch.Tensor, levels: torch.Tensor, noise,
+                              stochastic: bool) -> torch.Tensor:
+    """Normalized coordinates u in [0, 1] ([nb, bucket] f32) -> level
+    indices in [0, s + 1] (int32), unbiased: ``tau + (r < xi)`` with one
+    ``noise.uniform(u.shape)`` draw, or ``tau + (xi >= 0.5)``."""
+    lv = levels.float()
+    tau = torch.searchsorted(lv.contiguous(), u.contiguous(), right=True) - 1
+    tau = tau.clamp(0, lv.shape[0] - 2)
+    lo, hi = lv[tau], lv[tau + 1]
+    xi = (u - lo) / (hi - lo)
+    if stochastic:
+        up = noise.uniform(u.shape, u.device) < xi
+    else:
+        up = xi >= 0.5
+    return (tau + up.to(tau.dtype)).to(torch.int32)
+
+
+class _Constant:
+    """A noise source whose every draw is one constant."""
+
+    def __init__(self, value: float):
+        self.value = value
+
+    def uniform(self, shape, device) -> torch.Tensor:
+        return torch.full(tuple(shape), self.value, dtype=torch.float32, device=device)
+
+
+def quantize(v: torch.Tensor, levels: torch.Tensor, noise, cfg: QuantConfig) -> Quantized:
+    """Quantize a flat vector per Definition 1 (bucketed L^q normalization)
+    with kernel 1.  ``noise`` gives one ``[nb, bucket]`` uniform draw
+    (unused with ``cfg.stochastic=False``, which rounds to nearest)."""
+    from repro_torch.kernels.ops import quantize_flat
+
+    return quantize_flat(v, levels, noise if cfg.stochastic else _Constant(_NEAREST_NOISE), cfg)
+
+
+def dequantize(qt: Quantized, levels: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
+    """Inverse map with kernel 3: signed index -> level * sign * bucket
+    norm; returns the ``[n]`` f32 vector."""
+    from repro_torch.kernels.ops import dequantize_flat
+
+    return dequantize_flat(qt, levels, cfg)
+
+
+def quantize_dequantize(v: torch.Tensor, levels: torch.Tensor, noise,
+                        cfg: QuantConfig) -> torch.Tensor:
+    """Q then DEQ fused (hat{v} = Q_ell(v)) in one launch of kernel 5 with
+    one level table; shaped like ``v``, f32."""
+    from repro_torch.kernels.segment_quantize import quantize_dequantize_segments
+
+    v2d, n = pad_to_buckets(v.reshape(-1).float(), cfg.bucket_size)
+    r = noise.uniform(v2d.shape, v2d.device) if cfg.stochastic else None
+    seg = torch.zeros((v2d.shape[0],), dtype=torch.int32, device=v2d.device)
+    hat = quantize_dequantize_segments(
+        v2d, r, levels.float().reshape(1, -1), seg, num_symbols=(cfg.num_symbols,),
+        q_is_inf=cfg.q_is_inf, stochastic=cfg.stochastic)
+    return hat.reshape(-1)[:n].reshape(v.shape)
+
+
+# ---------------------------------------------------------------------------
+# Pytree forms (one noise draw per leaf, in JAX flatten order)
+# ---------------------------------------------------------------------------
+
+
+def quantize_pytree(tree, levels: torch.Tensor, noise, cfg: QuantConfig):
+    """Quantize every leaf (a :class:`Quantized` per leaf)."""
+    leaves, spec = tree_flatten(tree)
+    return tree_unflatten(spec, [quantize(l, levels, noise, cfg) for l in leaves])
+
+
+def dequantize_pytree(qtree, shapes_tree, levels: torch.Tensor, cfg: QuantConfig):
+    """Dequantize a pytree of :class:`Quantized` back to the leaf shapes of
+    ``shapes_tree`` (tensors, or shape tuples as leaves of a list/dict)."""
+    qleaves, spec = tree_flatten(qtree)
+    shapes = _shape_leaves(shapes_tree)
+    return tree_unflatten(spec, [dequantize(q, levels, cfg).reshape(sh)
+                                 for q, sh in zip(qleaves, shapes)])
+
+
+def _shape_leaves(tree) -> list:
+    """Leaf shapes of a tree whose leaves are tensors or shape tuples."""
+    out = []
+
+    def rec(node):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                rec(node[k])
+        elif isinstance(node, (list, tuple)) and not all(isinstance(d, int) for d in node):
+            for c in node:
+                rec(c)
+        else:
+            out.append(tuple(node.shape) if hasattr(node, "shape") else tuple(node))
+
+    rec(tree)
+    return out
+
+
+def quantize_dequantize_pytree(tree, levels: torch.Tensor, noise, cfg: QuantConfig):
+    """Per-leaf Q∘DEQ, each leaf with its own padding tail and draw, cast
+    back to the leaf's dtype (the unplanned layout; ``compress_tree``
+    uses the plan)."""
+    leaves, spec = tree_flatten(tree)
+    return tree_unflatten(spec, [quantize_dequantize(l, levels, noise, cfg).to(l.dtype)
+                                 for l in leaves])
+
+
+# ---------------------------------------------------------------------------
+# Theorem 1 — analytic variance bound epsilon_Q
+# ---------------------------------------------------------------------------
+
+
+def theorem1_epsilon_q(levels, d: int, q: float) -> float:
+    """Analytic variance multiplier bound of Theorem 1::
+
+        eps_Q = (lbar + 1/lbar)/4 - 1/2
+                + 1/4 l1^2 d^{2/min(q,2)}            if d <= d_th
+                + (l1 d^{1/min(q,2)} - 1)            if d >= d_th
+
+    with lbar = max_j l_{j+1}/l_j (interior ratios) and
+    d_th = (2 / l1)^{min(q,2)}.  ``levels`` may be a tensor or an array."""
+    if isinstance(levels, torch.Tensor):
+        levels = levels.detach().cpu().numpy()
+    levels = np.asarray(levels, dtype=np.float64)
+    l1 = float(levels[1])
+    ratios = levels[2:] / np.maximum(levels[1:-1], 1e-30)
+    lbar = float(np.max(ratios)) if ratios.size else 1.0
+    qm = min(q, 2.0)
+    d_th = (2.0 / l1) ** qm
+    eps = (lbar + 1.0 / lbar) / 4.0 - 0.5
+    if d <= d_th:
+        eps += 0.25 * l1**2 * d ** (2.0 / qm)
+    else:
+        eps += l1 * d ** (1.0 / qm) - 1.0
+    return float(max(eps, 0.0))
+
+
+def empirical_variance_multiplier(v: torch.Tensor, levels: torch.Tensor, cfg: QuantConfig,
+                                  noise, trials: int = 64) -> float:
+    """Monte-Carlo E||Q(v) - v||^2 / ||v||^2 over ``trials`` draws of
+    ``noise`` (one per trial)."""
+    flat = v.reshape(-1).float()
+    errs = torch.stack([torch.sum((quantize_dequantize(v, levels, noise, cfg).reshape(-1)
+                                   - flat) ** 2) for _ in range(trials)])
+    return float(torch.mean(errs) / torch.sum(flat ** 2))

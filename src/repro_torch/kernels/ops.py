@@ -9,27 +9,12 @@ the in-kernel packed buffer in 4-bit mode.
 
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
 from repro_torch.core.noise import draw_rounding
-from repro_torch.core.quantization import QuantConfig, pad_to_buckets
+from repro_torch.core.quantization import QuantConfig, Quantized, pad_to_buckets
 from repro_torch.kernels.dequantize import dequantize_blocks
 from repro_torch.kernels.quantize import quantize_blocks
-
-
-@dataclasses.dataclass
-class Quantized:
-    """payload int8 [nb * P]; norms f32 [nb]; n the unpadded length."""
-
-    payload: torch.Tensor
-    norms: torch.Tensor
-    n: int
-
-    def wire_bytes(self) -> int:
-        return int(self.payload.numel() * self.payload.element_size()
-                   + self.norms.numel() * 4)
 
 
 def quantize_flat(v: torch.Tensor, levels: torch.Tensor, noise, cfg: QuantConfig, *,

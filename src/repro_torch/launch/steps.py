@@ -35,12 +35,18 @@ from the workers' mean.  With ``recenter_every = R`` > 0, every step with
 exchanges its dual accumulator Y and recommits X = anchor + gamma Y, the
 adam family exchanges the params.
 
+Under ``level_schedule="qada"`` every exchange call (the gradient
+exchanges and the re-centering one) also adds its histogram to
+``ex_state.hist`` and advances the QAda cadence inside
+``Exchange.pmean_tree``; a local step makes no call, so it moves neither.
+
 Metrics: ``loss`` (mean over workers), ``wire_bytes`` (the analytic
-collective-operand bytes of the exchanges that ran, plus the probe's
+collective-operand bytes of the exchanges that ran, the QAda histogram's
+``4 * qada_bins`` a call included, plus the probe's
 ``4 * min(drift_probe, n)``), ``param_drift`` and ``coded_bits_est``
 (the Theorem 2 entropy-coded estimate of this worker's gradient
 broadcasts: ``Exchange.coded_bits_tree`` of the exchanged mean under the
-pre-step level table, times the gradient exchanges that ran; the
+pre-step level table (before any QAda refresh of this step), times the gradient exchanges that ran; the
 re-centering exchange is not counted; 0 on steps that do not sync and for
 every compressor but qgenx).  The guard and fault schedules are not
 ported: ``make_train_step`` has no parameter for them.  The device-PRNG

@@ -22,7 +22,10 @@ device-PRNG exchange: a caller of :func:`run` passes
 
 ``--sync-every`` / ``--recenter-every`` set the local-update regime
 (:mod:`repro_torch.launch.steps`); step lines then add ``drift=`` and,
-for qgenx, ``coded_bits=`` (the Theorem 2 estimate).  ``--checkpoint-dir``
+for qgenx, ``coded_bits=`` (the Theorem 2 estimate).
+``--level-schedule qada --level-update-every N`` refreshes the level
+tables by QAda every N exchange calls (a period is required); the run
+ends by printing the final table, and :func:`run` returns it.  ``--checkpoint-dir``
 with ``--checkpoint-every`` saves every N steps and at the end, in the
 reference's format (:mod:`repro_torch.checkpoint.checkpointing`: a
 checkpoint of either package resumes in the other); a run whose
@@ -83,7 +86,9 @@ def build_exchange_config(args) -> ExchangeConfig:
     if args.compressor == "layerwise" and args.compression == "none":
         raise ValueError("--compressor layerwise needs --compression int8 or int4 "
                          "(its quantizer for leaves above the threshold)")
-    local = dict(sync_every=args.sync_every, recenter_every=args.recenter_every)
+    local = dict(sync_every=args.sync_every, recenter_every=args.recenter_every,
+                 level_schedule=args.level_schedule,
+                 level_update_every=args.level_update_every)
     if args.compression == "none":
         return ExchangeConfig(compressor="none", mode=args.compress_mode, **local)
     bits = 8 if args.compression == "int8" else 4
@@ -115,6 +120,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--recenter-every", type=int, default=0,
                     help="re-center the iterates through the exchange every R-th "
                          "step (0 = never)")
+    ap.add_argument("--level-schedule", default="fixed", choices=("fixed", "qada"))
+    ap.add_argument("--level-update-every", type=int, default=0,
+                    help="QAda refresh period in exchange calls (qada schedule)")
     ap.add_argument("--checkpoint-dir", default="")
     ap.add_argument("--checkpoint-every", type=int, default=0)
     ap.add_argument("--allow-ckpt-reset", action="store_true",
@@ -212,8 +220,9 @@ def run(args, log=print, exchange: Optional[ExchangeConfig] = None,
     workers), ``loss``, ``wire_bytes``, ``param_drift``,
     ``coded_bits_est`` and ``step_s``, with ``start_step`` (the restored
     step, else 0), ``restored`` (the restore's step, checkpoint bytes and
-    seconds, or None) and ``saves`` (each save's step, bytes and
-    seconds).  ``exchange`` replaces the exchange config the flags give
+    seconds, or None), ``saves`` (each save's step, bytes and
+    seconds) and ``levels`` (the final primary level table as a list,
+    None for the exact ``none`` compressor).  ``exchange`` replaces the exchange config the flags give
     (for fields that have no flag, such as ``use_device_prng``);
     ``config`` replaces the model config of ``--arch`` / ``--reduced``
     (``--dtype`` still applies)."""
@@ -241,7 +250,8 @@ def run(args, log=print, exchange: Optional[ExchangeConfig] = None,
                 + (f"method={args.method} " if args.optimizer == "qgenx" else "")
                 + f"compressor={ex.cfg.compressor} compression={args.compression} "
                 f"mode={ex.cfg.mode} sync_every={ex.cfg.sync_every} "
-                f"recenter_every={ex.cfg.recenter_every}")
+                f"recenter_every={ex.cfg.recenter_every} "
+                f"level_schedule={ex.cfg.level_schedule}")
         out = {"loss": [], "wire_bytes": [], "param_drift": [], "coded_bits_est": [],
                "step_s": [], "start_step": 0, "restored": None, "saves": []}
         ckpt = args.checkpoint_dir
@@ -280,6 +290,9 @@ def run(args, log=print, exchange: Optional[ExchangeConfig] = None,
         if ckpt and out["step_s"]:
             out["saves"].append(_save(ckpt, args.steps, model, opt_state, ex_state,
                                       rank, world))
+        out["levels"] = ex_state.levels.tolist() if ex.compressor.has_levels else None
+        if rank == 0 and ex.cfg.level_schedule == "qada" and out["levels"] is not None:
+            log(f"[train] qada levels={np.round(np.asarray(out['levels']), 4)}")
         return out
     finally:
         if world > 1:

@@ -143,14 +143,18 @@ def run_group(K, workdir, inputs, cases, backend="gloo", device="cpu", while_run
 
 def run_step(rank, world, store_path, in_path, out_dir, cases, backend, device):
     """Each case ``(name, method, bits, mode, sync_every, recenter_every,
-    steps)`` of ``_torch_step_k2_reference.CASES``: the port's train step on
+    steps, level_update_every)`` of ``_torch_step_k2_reference.CASES``: the port's train step on
     reduced tinyllama-1.1b from the reference's initial params
     (``p0_{j}``), on this worker's rows of each step's batch, with this
     worker's noise draws replayed (``noise_{rank}_{i}``).  Saves
     ``out_{case}_{rank}.npz``: the per-step metrics, the final params
     (``p_{j}``) and the wire recorder's ``(name, nbytes)`` list of the first
-    step that exchanged, and the optimizer state's ``count`` (and qgenx's
-    ``sum_sq``) as the reference's numpy tree holds them."""
+    step that exchanged, the optimizer state's ``count`` (and qgenx's
+    ``sum_sq``) as the reference's numpy tree holds them, and each step's
+    level table and QAda histogram (``levels_{t}``, ``hist_{t}``).  Where
+    the inputs hold the reference's ``levels_{t}``, the state's table is
+    set to it after step t, so later steps are held given the reference's
+    levels."""
     import torch
 
     from repro_torch.configs import get_config
@@ -169,14 +173,17 @@ def run_step(rank, world, store_path, in_path, out_dir, cases, backend, device):
     dist.init_process_group(backend, store=dist.FileStore(store_path, world),
                             rank=rank, world_size=world)
     try:
-        for i, (name, method, bits, mode, sync_every, recenter_every, steps) in enumerate(cases):
+        for i, (name, method, bits, mode, sync_every, recenter_every, steps,
+                every) in enumerate(cases):
             n_leaves = sum(1 for k in data.files if k.startswith("p0_"))
             model = params_from_jax([data[f"p0_{j}"] for j in range(n_leaves)],
                                     build(get_config("tinyllama-1.1b").reduced(), device=dev))
             quant = QuantConfig(num_levels=15 if bits == 8 else 5, bits=bits, bucket_size=256)
             ex = xmod.make_exchange(
                 xmod.ExchangeConfig(compressor="qgenx", quant=quant, mode=mode,
-                                    sync_every=sync_every, recenter_every=recenter_every),
+                                    sync_every=sync_every, recenter_every=recenter_every,
+                                    level_schedule="qada" if every else "fixed",
+                                    level_update_every=every),
                 xmod.ProcessGroupComm())
             opt_cfg = OptimizerConfig(name=name, gamma_scale=0.02, method=method)
             step = make_train_step(model, opt_cfg, ex)
@@ -187,6 +194,7 @@ def run_step(rank, world, store_path, in_path, out_dir, cases, backend, device):
             noise = ReplayNoise([data[k] for k in draws])
             rows = slice(rank * 2, rank * 2 + 2)
             out = {k: [] for k in ("loss", "wire_bytes", "param_drift", "coded_bits_est")}
+            levels = {}
             trace = None
             for t in range(steps):
                 batch = to_device({"tokens": data[f"tokens_{t}"],
@@ -200,9 +208,14 @@ def run_step(rank, world, store_path, in_path, out_dir, cases, backend, device):
                     trace = rec or None
                 for k in out:
                     out[k].append(float(m[k]))
+                levels[f"levels_{t}"] = ex_state.levels.cpu().numpy()
+                levels[f"hist_{t}"] = ex_state.hist.cpu().numpy()
+                if f"levels_{t}" in data.files:  # hold later steps given the reference's
+                    ex_state.levels = torch.from_numpy(data[f"levels_{t}"]).to(dev)
             if noise.remaining:
                 raise RuntimeError("not every noise draw was used")
             res = {k: np.asarray(v, np.float64) for k, v in out.items()}
+            res.update(levels)
             for j, p in enumerate(model.param_leaves()):
                 res[f"p_{j}"] = p.detach().cpu().numpy()
             state = opt_state_to_jax(opt_state, model)

@@ -17,6 +17,8 @@ weights from ``PRNGKey(0)``), runs ``make_train_step`` of case ``CASE``
   ``coded_bits_est`` (arrays over steps) and the exchange-call count;
 * the final params (``p_{j}``) and optimizer state's ``count`` and, for
   qgenx, ``sum_sq`` (``opt_count``, ``opt_sum_sq``);
+* each step's exchange state's level table and QAda histogram
+  (``levels_{t}``, ``hist_{t}``);
 * each worker's noise draws in the order its exchanges ask for them
   (``noise_{k}_{i}``): per exchange key, ``fold_in(key, worker)`` ->
   ``split`` -> the quantize draw and, two_phase, the re-quantize draw.
@@ -40,11 +42,13 @@ import sys
 BATCH, SEQ, GAMMA, BUCKET = 4, 16, 0.02, 256
 RECENTER_TAG = 0x5EED
 
-# name -> (optimizer, method, bits, mode, sync_every, recenter_every, steps)
+# name -> (optimizer, method, bits, mode, sync_every, recenter_every, steps,
+#          level_update_every: 0 = fixed levels, else the QAda period)
 CASES = {
-    "a": ("qgenx", "de", 8, "two_phase", 1, 0, 2),
-    "b": ("qgenx", "optda", 4, "gather", 2, 2, 4),
-    "c": ("extra_adam", "de", 8, "two_phase", 2, 0, 4),
+    "a": ("qgenx", "de", 8, "two_phase", 1, 0, 2, 0),
+    "b": ("qgenx", "optda", 4, "gather", 2, 2, 4, 0),
+    "c": ("extra_adam", "de", 8, "two_phase", 2, 0, 4, 0),
+    "d": ("qgenx", "de", 8, "two_phase", 2, 2, 4, 2),
 }
 
 
@@ -53,7 +57,7 @@ def exchange_keys(case, count, key):
     ``count`` runs, in order (``jax`` imported by the caller)."""
     import jax
 
-    name, method, _, _, sync_every, recenter_every, _ = CASES[case]
+    name, method, _, _, sync_every, recenter_every, _, _ = CASES[case]
     k1, k2 = jax.random.split(key)
     keys = []
     if count % sync_every == sync_every - 1:
@@ -88,14 +92,16 @@ def main(case: str, out_path: str, path: str = "pallas") -> None:
     K = 2
     assert jax.device_count() == K, "run with --xla_force_host_platform_device_count=2"
     steps.shard_map = shard_map_shim
-    name, method, bits, mode, sync_every, recenter_every, n_steps = CASES[case]
+    name, method, bits, mode, sync_every, recenter_every, n_steps, every = CASES[case]
     cfg = get_config("tinyllama-1.1b").reduced()
     model = build(cfg)
     params = model.init(jax.random.PRNGKey(0))
     quant = QuantConfig(num_levels=15 if bits == 8 else 5, bits=bits, bucket_size=BUCKET)
     ex = make_exchange(ExchangeConfig(compressor="qgenx", quant=quant, mode=mode,
                                       use_pallas=path == "pallas", sync_every=sync_every,
-                                      recenter_every=recenter_every))
+                                      recenter_every=recenter_every,
+                                      level_schedule="qada" if every else "fixed",
+                                      level_update_every=every))
     opt_cfg = opt.OptimizerConfig(name=name, gamma_scale=GAMMA, method=method)
     opt_state = opt.init_state(opt_cfg, params)
     ex_state = ex.init_state()
@@ -137,6 +143,8 @@ def main(case: str, out_path: str, path: str = "pallas") -> None:
             assert calls[-1] == len(keys), (t, calls[-1], len(keys))
             for k in metrics:
                 metrics[k].append(float(m[k]))
+            out[f"levels_{t}"] = np.asarray(ex_state.levels)
+            out[f"hist_{t}"] = np.asarray(ex_state.hist)
     for k, v in metrics.items():
         out[k] = np.asarray(v, np.float64)
     out["calls"] = np.asarray(calls)

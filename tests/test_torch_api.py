@@ -13,8 +13,10 @@ from repro_torch.core.exchange import (
     exchange_buffer_bytes,
     make_exchange,
 )
+from repro_torch.core.extragradient import QGenXConfig, qgenx_init
 from repro_torch.core.noise import GeneratorNoise, ReplayNoise
 from repro_torch.core.quantization import QuantConfig, exponential_levels, uniform_levels
+from repro_torch.core.vi import bilinear_saddle
 from repro_torch.device import resolve_device
 from repro_torch.kernels import cuda
 from repro_torch.launch import train
@@ -40,7 +42,10 @@ def test_cuda_without_a_gpu_raises(monkeypatch):
     lambda: make_exchange(ExchangeConfig(quant=Q8)).init_state(),
     lambda: uniform_levels(15),
     lambda: exponential_levels(5),
-], ids=["DenseDecoder", "init_state", "uniform_levels", "exponential_levels"])
+    lambda: bilinear_saddle(d=4).tensors(),
+    lambda: qgenx_init(torch.zeros(8), QGenXConfig()),
+], ids=["DenseDecoder", "init_state", "uniform_levels", "exponential_levels",
+        "AffineVI.tensors", "qgenx_init"])
 def test_constructors_take_no_default_device(make):
     # below the entry points, a caller names the device: nothing lands on
     # the CPU unasked
@@ -51,10 +56,12 @@ def test_constructors_take_no_default_device(make):
 @pytest.mark.parametrize("kwargs", [
     dict(compressor="randk"), dict(compressor="ef-randk"),
     dict(compressor="ef21-topk"), dict(compressor="qgenx"),
+    # kwargs5: QAda is ported; without a refresh period it is invalid
+    # (ValueError, as in the reference)
     dict(quant=Q8, mode="leafwise"), dict(quant=Q8, level_schedule="qada"),
     dict(quant=Q8, drift_probe=0), dict(quant=Q8, recenter_every=-1),
     dict(quant=Q8, num_buckets=2, overlap="bucketed"), dict(quant=Q8, allreduce_fallback=True),
-    dict(quant=Q8, use_plan=False),
+    dict(quant=Q8, use_plan=False), dict(quant=Q8, level_schedule="bogus"),
 ])
 def test_unported_exchange_options_are_rejected(kwargs):
     # an unported (or invalid) value raises ValueError; a field the slice
@@ -155,3 +162,20 @@ def test_train_cli_on_cpu(mode, bits, method, capsys):
     calls = 2 if method == "de" else 1
     assert out["wire_bytes"] == [calls * sum(exchange_buffer_bytes(n, 1, quant, mode).values())] * 2
     assert "final_loss=" in capsys.readouterr().out
+
+
+def test_qada_cli_prints_and_returns_levels(capsys):
+    with pytest.raises(ValueError, match="level_update_every"):
+        train.build_exchange_config(train.parser().parse_args(
+            ["--compression", "int8", "--level-schedule", "qada"]))
+    out = train.main(["--reduced", "--steps", "2", "--batch", "4", "--seq", "16",
+                      "--compression", "int8", "--optimizer", "qgenx", "--level-schedule", "qada",
+                      "--level-update-every", "2", "--device", "cpu"])
+    levels = np.asarray(out["levels"], np.float32)
+    assert levels.shape == (17,) and levels[0] == 0.0 and levels[-1] == 1.0
+    assert not np.allclose(levels, np.linspace(0, 1, 17), atol=1e-4)
+    reduced = get_config("tinyllama-1.1b").reduced()
+    n = sum(p.numel() for p in build(reduced, device="cpu").param_leaves())
+    per_call = sum(exchange_buffer_bytes(n, 1, Q8, "two_phase").values()) + 4 * 512
+    assert out["wire_bytes"] == [2 * per_call] * 2
+    assert "[train] qada levels=" in capsys.readouterr().out

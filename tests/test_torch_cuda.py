@@ -129,6 +129,75 @@ def test_quantize_kernels_with_exponential_levels(dev, s, bits, q_is_inf):
          ref.dequant_reduce_requantize_blocks_plain(P, N, lv, r, **kw))
 
 
+
+def qada_table(kind, s, dev):
+    """A level table QAda solves (the exchange's 2 sweeps x 20 bisection
+    steps over 512 bins): from a Gaussian's or a t(3)'s histogram over
+    512-wide L^inf buckets, or the degenerate table of an all-zero
+    histogram (every interior level within 1e-5 of 0)."""
+    from repro_torch.core import adaptive_levels as qada
+    from repro_torch.core.quantization import bucket_norms
+
+    gen = torch.Generator()
+    gen.manual_seed(s)
+    if kind == "zero":
+        hist = torch.zeros(512)
+    else:
+        v = torch.randn((256, 512), generator=gen)
+        if kind == "t3":
+            v = v / torch.sqrt(torch.randn((256, 512), generator=gen) ** 2 / 3 + 1e-3)
+        hist = qada.normalized_coord_histogram(v, bucket_norms(v, float("inf")), 512)
+    return qada.optimize_levels(uniform_levels(s, "cpu"), hist, sweeps=2,
+                                bisect_iters=20).to(dev)
+
+
+@pytest.mark.parametrize("kind,s,bits", [("gauss", 15, 8), ("t3", 5, 4), ("zero", 15, 8)])
+def test_quantize_kernels_with_qada_tables(dev, kind, s, bits):
+    """Kernels 1 and 2 on tables QAda produces, bit-equal to their plain
+    versions at q = inf (whichever bracket branch the table sends them
+    down: the degenerate table puts every level in one cell)."""
+    lv = qada_table(kind, s, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(s + bits)
+    nb, bucket = rows_for("wrap", dev), 512
+    x = torch.randn((nb, bucket), generator=gen, device=dev) * torch.exp2(
+        torch.randint(-24, 1, (nb, bucket), generator=gen, device=dev).float())
+    x[5] = 0
+    r = torch.rand((nb, bucket), generator=gen, device=dev)
+    kw = dict(num_symbols=s + 2, q_is_inf=True, bits=bits)
+    pp, np_ = ref.quantize_blocks_plain(x, r, lv, **kw)
+    pk, nk = quantize_blocks(x, r, lv, **kw)
+    assert torch.equal(pk, pp) and torch.equal(nk, np_)
+    P, N = torch.stack([pp, pp.flip(0)]), torch.stack([np_, np_.flip(0)])
+    got = dequant_reduce_requantize_blocks(P, N, lv, r, num_workers=2, **kw)
+    want = ref.dequant_reduce_requantize_blocks_plain(P, N, lv, r, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("levels_kind", ["uniform", "qada"])
+def test_segment_kernel_at_the_toy_vi_shape(dev, levels_kind):
+    """Kernel 5 as the toy-VI loop calls it: K = 4 workers' 64-coordinate
+    duals (bilinear_saddle(d=32)), bucket 64, one table, one launch per
+    exchange, bit-equal to the plain version."""
+    from repro_torch.core.exchange import ExchangeConfig, make_exchange
+    from repro_torch.core.noise import ReplayNoise
+    from repro_torch.core.quantization import QuantConfig
+
+    s = 15
+    lv = uniform_levels(s, dev) if levels_kind == "uniform" else qada_table("gauss", s, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    v = torch.randn((4, 64), generator=gen, device=dev)
+    r = [torch.rand((1, 64), generator=gen, device=dev) for _ in range(4)]
+    ex = make_exchange(ExchangeConfig(quant=QuantConfig(num_levels=s, bits=8, bucket_size=64)))
+    before = cuda.launch_counts()["quantize_dequantize_segments"]
+    got = ex.compress_with_levels(v, lv, ReplayNoise(r), workers=True)
+    assert cuda.launch_counts()["quantize_dequantize_segments"] == before + 1
+    want = ref.quantize_dequantize_segments_plain(
+        v, torch.cat(r), lv[None], torch.zeros(4, dtype=torch.int32, device=dev),
+        num_symbols=(s + 2,), q_is_inf=True)
+    assert torch.equal(got, want)
+
 def segment_tables(name, dev):
     """Kernel 5's stacked level tables of one case: 17, 7 and 5 symbols
     (T = 1, 2, 3); 32 tables of 2-128 symbols, uniform (cell lookup) and
