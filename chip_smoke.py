@@ -78,12 +78,24 @@ imports only ``repro_torch`` (from ``src/`` beside this file) and:
       (the bracket branch it takes is printed); the histogram pass's and
       each refresh's ms, step times beside phase 4a's fixed-schedule run
       and the peak are printed (``qada_path``);
+   f. the sparse compressors at the same width: 3 qgenx ``de`` steps
+      under ``--compressor ef21-topk --ef-topk-frac 0.25`` and 3 under
+      ``--compressor randk --rand-frac 0.25``: ``wire_bytes`` 2 x 8k a
+      step, the recorder's ``ef21_*`` / ``randk_*`` operands at 4k bytes
+      each, no exchange kernel launched, finite losses, a finite non-zero
+      error memory under ef21-topk; step times and peaks printed beside
+      phase 4a's; then, at frac 1.0 on a full-width gradient-shaped tree,
+      the exchanged mean equal to the gradient bit for bit (and the EF
+      memory too), and the top-k selection and the support draw timed
+      alone at the full buffer (``sparse_path``);
    b. the WGAN-GP testbed (``repro_torch.launch.train_gan.run``, the
       paper's Section 5 at the reference's width: K = 3 workers, batch
       256 each, hidden 64) for 300 ExtraAdam steps in each of the fp32,
-      uq8, uq4 and layerwise arms, then uq8 with the device PRNG
+      uq8, uq4, randk25 and layerwise arms, then uq8 with the device PRNG
       (``wgan.train``).  Kernel 5 (or its device-PRNG variant) must
-      launch twice per step in every compressed arm and never in fp32;
+      launch twice per step in every quantized arm and never in fp32 or
+      randk25 (whose bytes a step must be 2 x sum of 8 max(1,
+      round(size / 4)) over the leaves);
       every energy distance must be finite and uq8's below the
       reference's bound 2 * fp32 + 0.5 (one seed of the device-PRNG arm
       is reported beside it, not held to the bound).  Each compressed
@@ -97,7 +109,8 @@ imports only ``repro_torch`` (from ``src/`` beside this file) and:
       on ``repro_torch.core.vi`` problems, K = 4, T = 2048 a run): Fig. 4
       (bilinear d = 16, Q-GenX ``de`` fp32 and uq8 against QSGDA) and the
       compression arms on bilinear d = 32 (fp32, uq8, uq4, uq8 with QAda
-      every 32 steps), each arm's restricted gap, bits and ms a step
+      every 32 steps; ef21-topk, ef-randk and randk at frac 0.25, which
+      launch no kernel), each arm's restricted gap, bits and ms a step
       printed and its gap held to the same draws' run on the CPU port;
       Q-GenX must beat QSGDA, QAda's levels move, and kernel 5 launch 2T
       times per quantized arm; its first call of the uq8 d = 32 arm is
@@ -1182,16 +1195,154 @@ def qada_path(torch, batch: int, seq: int, shapes: list, fixed: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4f: the sparse compressors (ef21-topk, randk) on the main path
+# ---------------------------------------------------------------------------
+
+
+SPARSE_STEPS, SPARSE_FRAC = 3, 0.25
+SPARSE_RUNS = (("ef21-topk", dict(ef_topk_frac=SPARSE_FRAC), "ef21"),
+               ("randk", dict(rand_frac=SPARSE_FRAC), "randk"))
+
+
+def _synced_ms(torch, fn):
+    """(fn's result, its ms with a device sync on both sides)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def sparse_path(torch, batch: int, seq: int, shapes: list, fixed: dict) -> dict:
+    """Phase 4f: tinyllama-1.1b at full width (bf16 layers, K = 1) through
+    ``run()``: 3 qgenx ``de`` steps under ``--compressor ef21-topk
+    --ef-topk-frac 0.25``, then under ``--compressor randk --rand-frac
+    0.25``, the launch counts reset and the wire recorder on around each
+    run.  Holds: ``wire_bytes`` 2 x 8k a step (k = round(0.25 n), two
+    exchanges); the recorder's ``<tag>_vals`` / ``<tag>_idx`` at 4k bytes
+    each, once an exchange; no exchange kernel launched (the sparse
+    compressors run none); finite losses; under ef21-topk a finite,
+    non-zero ``[1, n]`` error memory.  Then two exact checks at frac 1.0
+    on a full-width gradient-shaped tree (one exchange each, from a zero
+    memory): under ef21-topk h' = 0 + (g - 0) = g, so the mean and the
+    memory equal g; under randk the support is everything and n/k = 1, so
+    the mean equals g.  Last, the top-k selection and the support draw
+    are timed alone at the full buffer (k = round(0.25 n), synced, two
+    calls each).  Prints step times beside phase 4a's qgenx int8 run
+    (``fixed``), peaks, wire bytes and the recorder's list.  Returns the
+    launch counts."""
+    from repro_torch.core import exchange as xmod
+    from repro_torch.core.exchange import ExchangeConfig, make_exchange, topk_support
+    from repro_torch.core.exchange_plan import size_of
+    from repro_torch.core.noise import GeneratorNoise
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.train import run
+
+    n = sum(size_of(s) for s in shapes)
+    k = max(1, round(SPARSE_FRAC * n))
+    counts_all = {name: 0 for name in cuda.KERNELS}
+    for comp, frac, tag in SPARSE_RUNS:
+        args = _train_args(arch="tinyllama-1.1b", dtype="bfloat16", batch=batch, seq=seq,
+                           device="cuda", optimizer="qgenx", method="de", compressor=comp,
+                           steps=SPARSE_STEPS, **frac)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launch_counts()
+        xmod.wire_trace_start()
+        out = run(args, log=lambda m: log(f"  {m}"))
+        trace = xmod.wire_trace_stop()
+        counts = cuda.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        err = out.pop("ex_state").error
+        want_wire = 2 * 8.0 * k
+        if out["wire_bytes"] != [want_wire] * SPARSE_STEPS:
+            fail(f"phase 4f {comp}: wire_bytes {out['wire_bytes']} != 2 x 8k = {want_wire}")
+        if trace != [(f"{tag}_vals", 4 * k), (f"{tag}_idx", 4 * k)] * (2 * SPARSE_STEPS):
+            fail(f"phase 4f {comp}: the recorder saw {trace[:4]}... ({len(trace)} entries)")
+        if any(counts.values()):
+            fail(f"phase 4f {comp}: exchange kernels launched: {counts}")
+        if not all(math.isfinite(v) for v in out["loss"]):
+            fail(f"phase 4f {comp}: non-finite loss {out['loss']}")
+        norm = float(torch.linalg.vector_norm(err))
+        want_shape = (1, n) if comp == "ef21-topk" else (1,)
+        if tuple(err.shape) != want_shape or not math.isfinite(norm) or (
+                comp == "ef21-topk" and norm == 0.0):
+            fail(f"phase 4f {comp}: error memory {tuple(err.shape)}, norm {norm}")
+        del err
+        log(f"  phase 4f {comp} (frac {SPARSE_FRAC}): loss={out['loss']} step_s={out['step_s']} "
+            f"peak_bytes={peak} wire_bytes={out['wire_bytes'][0]:.0f} (2 x 8k, k = {k}) "
+            f"recorder={trace[:2]} x {SPARSE_STEPS * 2} error_norm={norm!r} launches=0")
+        log(f"phase 4f: de {comp} step_s {out['step_s']} vs qgenx int8 {fixed['step_s']}; "
+            f"peak {peak} bytes (qgenx int8: {fixed['peak_bytes']})")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the exact checks at frac = 1.0, one exchange each from a zero memory
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(43)
+    tree = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    for comp in ("ef21-topk", "randk"):
+        ex = make_exchange(ExchangeConfig(compressor=comp, rand_frac=1.0, ef_topk_frac=1.0))
+        st = ex.init_state("cuda", template=tree, num_workers=1)
+        (mean, st), ms = _synced_ms(torch, lambda: ex.pmean_tree(
+            tree, st, GeneratorNoise.seeded(44, "cuda")))
+        if not all(torch.equal(m, g) for m, g in zip(mean, tree)):
+            fail(f"phase 4f: {comp} at frac 1.0: the mean is not the gradient bit for bit")
+        if comp == "ef21-topk" and not all(
+                torch.equal(st.error[0, o: o + g.numel()], g.reshape(-1))
+                for o, g in zip(_offsets(tree), tree)):
+            fail("phase 4f: ef21-topk at frac 1.0: the memory is not the gradient")
+        log(f"  phase 4f: {comp} at frac 1.0 over {n} coordinates: mean == g bit for bit"
+            + (", error == g" if comp == "ef21-topk" else "") + f" ({ms:.1f} ms the exchange)")
+        del mean, st, ex
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the two selections alone, at the full buffer
+    x = torch.randn((n,), generator=gen, device="cuda")
+    noise = GeneratorNoise.seeded(45, "cuda")
+    topk_ms, draw_ms = [], []
+    for _ in range(2):
+        idx, ms = _synced_ms(torch, lambda: topk_support(x, k))
+        topk_ms.append(ms)
+        if idx.numel() != k:
+            fail(f"phase 4f: topk_support gave {idx.numel()} indices, not {k}")
+        del idx
+        idx, ms = _synced_ms(torch, lambda: noise.subset(n, k, "cuda"))
+        draw_ms.append(ms)
+        if idx.numel() != k or int(idx.min()) < 0 or int(idx.max()) >= n:
+            fail("phase 4f: the support draw left range(n)")
+        del idx
+    del x
+    log(f"phase 4f: at the full buffer ({n} coordinates, k = {k}): top-k selection "
+        f"{topk_ms} ms, support draw {draw_ms} ms")
+    return counts_all
+
+
+def _offsets(tree) -> list:
+    out, pos = [], 0
+    for g in tree:
+        out.append(pos)
+        pos += g.numel()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4e: the toy-VI testbed (Q-GenX loop, QSGDA) on the card
 # ---------------------------------------------------------------------------
 
 
 TOY_K, TOY_T = 4, 2048
+TOY_SPARSE = ("ef21-topk", "ef-randk", "randk")  # frac 0.25 each: k = 16 of 64
 TOY_GAP_RTOL = 1e-2  # card vs CPU port, the same draws (see toy_vi_path)
 
 
 def toy_arms():
     """(name, problem, sigma, config or None for QSGDA) of phase 4e."""
+    from repro_torch.core.exchange import ExchangeConfig
     from repro_torch.core.extragradient import QGenXConfig
     from repro_torch.core.quantization import QuantConfig
     from repro_torch.core.vi import bilinear_saddle
@@ -1204,7 +1355,9 @@ def toy_arms():
             ("fig4-qsgda", fig4, 0.1, None),
             ("d32-fp32", arms, 0.5, de()), ("d32-uq8", arms, 0.5, de(quant=uq8)),
             ("d32-uq4", arms, 0.5, de(quant=uq4)),
-            ("d32-uq8-qada", arms, 0.5, de(quant=uq8, level_update_every=32))]
+            ("d32-uq8-qada", arms, 0.5, de(quant=uq8, level_update_every=32))] + [
+            (f"d32-{c}", arms, 0.5, de(exchange=ExchangeConfig(compressor=c)))
+            for c in TOY_SPARSE]
 
 
 def _toy_run(torch, vi, sigma, cfg, device, seed):
@@ -1325,7 +1478,7 @@ GAN_PRNG_ARM = "uq8-prng"
 
 
 def gan_path(torch, int_ops: float) -> tuple:
-    """The WGAN-GP testbed at the reference's width: every ported arm
+    """The WGAN-GP testbed at the reference's width: every arm
     through the CLI's ``run``, then the uq8 arm with the device PRNG
     (``GANConfig(exchange=ExchangeConfig(..., use_device_prng=True))``
     through ``wgan.train``), the launch counts reset just before each arm
@@ -1339,6 +1492,7 @@ def gan_path(torch, int_ops: float) -> tuple:
     shape ([K x 19, 512]: 3 workers' buffers in one launch).  Returns
     ({arm: (result, kernel 5 launches)}, the GAN-shape kernel rows)."""
     from repro_torch.core import exchange_plan
+    from repro_torch.core.tree import tree_leaves
     from repro_torch.gan import wgan
     from repro_torch.kernels import cuda, ref
     from repro_torch.launch import train_gan
@@ -1357,7 +1511,7 @@ def gan_path(torch, int_ops: float) -> tuple:
     workers = train_gan.parser().parse_args([]).workers
     exchange_plan.quantize_dequantize_segments = recorder
     try:
-        for arm in train_gan.PORTED_ARMS + (GAN_PRNG_ARM,):
+        for arm in train_gan.ARMS + (GAN_PRNG_ARM,):
             cuda.reset_launch_counts()
             if arm == GAN_PRNG_ARM:
                 cfg = wgan.GANConfig(num_workers=workers, exchange=dataclasses.replace(
@@ -1372,12 +1526,19 @@ def gan_path(torch, int_ops: float) -> tuple:
             other = ("quantize_dequantize_segments" if arm == GAN_PRNG_ARM
                      else "quantize_dequantize_segments/prng")
             n = counts[kernel]
-            want = 0 if arm == "fp32" else 2 * GAN_STEPS  # one launch per exchange
+            # one launch per exchange; fp32 and randk25 run no kernel
+            want = 0 if arm in ("fp32", "randk25") else 2 * GAN_STEPS
             if n != want or counts[other]:
                 fail(f"GAN arm {arm}: {kernel} launched {n} times (expected {want}), "
                      f"{other} {counts[other]}")
             if not math.isfinite(res["energy_distance"]):
                 fail(f"GAN arm {arm}: energy distance {res['energy_distance']}")
+            if arm == "randk25":
+                want_bytes = 2 * sum(8 * max(1, round(0.25 * p.numel()))
+                                     for p in tree_leaves(res["params"]))
+                if res["bytes_per_step_per_worker"] != want_bytes:
+                    fail(f"GAN arm randk25: {res['bytes_per_step_per_worker']} bytes a step, "
+                         f"expected 2 x sum of 8 max(1, round(size / 4)) = {want_bytes}")
             out[arm] = (res, n)
             log(f"  gan {arm}: energy_distance={res['energy_distance']!r} "
                 f"median_step_ms={res['median_step_ms']!r} "
@@ -1452,6 +1613,11 @@ class _NumpyNoise:
 
         a = (2 * self.rng.randint(0, 2, size=tuple(shape)) - 1).astype("float32")
         return torch.from_numpy(a).to(device)
+
+    def subset(self, n, k, device):
+        import torch
+
+        return torch.from_numpy(self.rng.permutation(n)[:k].astype("int32")).to(device)
 
 
 def card_vs_cpu(torch) -> None:
@@ -1915,7 +2081,15 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # phase 4b: the WGAN-GP testbed, every ported arm, and uq8 with the device PRNG
+    # phase 4f: the sparse compressors (ef21-topk, randk) at full width
+    t0 = time.perf_counter()
+    for k, n in sparse_path(torch, args.batch, args.seq, shapes, by_run["int8"]).items():
+        launches[k] += n
+    log(f"phase 4f took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 4b: the WGAN-GP testbed, every arm, and uq8 with the device PRNG
     t0 = time.perf_counter()
     gan, gan_rows = gan_path(torch, int_ops)
     launches["quantize_dequantize_segments"] = sum(

@@ -59,10 +59,26 @@ per-vector ``compress`` / ``compress_with_levels`` (the toy-VI loop's
 estimate) is ``compress_tree`` of one tensor, and ``qada_propose`` one
 refresh from the caller's vectors.
 
-Not ported, and rejected by :class:`ExchangeConfig` (an unported value
-raises ``ValueError``, an unported field ``TypeError``): the randk and
-error-feedback compressors, mode ``leafwise``, bucketed overlap and the
-unplanned layout (``use_plan``).
+The sparse compressors send k coordinates a worker: ``randk`` (unbiased:
+a uniform k-subset from the noise source's ``subset`` draw, values
+scaled by n/k, the all-gathered values scatter-added worker by worker and
+divided by K) and the contractive tier with EF21 error feedback,
+``ef21-topk`` (the k largest |innovation|, ties to the lower index as
+``jax.lax.top_k`` keeps them: :func:`topk_support`) and ``ef-randk``
+(a uniform support, no rescale).  Each worker's ``[K, n]`` memory
+``ExchangeState.error`` is replicated: every worker replays all K
+workers' gathered innovations into it, in place.  Their wire is k f32
+values and k int32 indices a worker (``randk_vals`` / ``randk_idx``,
+``ef21_*``, ``ef_randk_*``).  None of them runs an exchange kernel: the
+reference computes them outside any Pallas kernel too.  The registry
+(:func:`get_compressor`, :func:`registered_compressors`) declares each
+compressor's contract tier.
+
+Not ported: mode ``leafwise``, bucketed overlap and the unplanned layout
+(``use_plan``), rejected by :class:`ExchangeConfig` (an unported value
+raises ``ValueError``, an unported field ``TypeError``); the
+partial-participation masks and the fault options, which no function of
+the port takes.
 """
 
 from __future__ import annotations
@@ -94,7 +110,6 @@ from repro_torch.kernels.dequant_reduce import (
 from repro_torch.kernels.dequantize import dequantize_blocks
 from repro_torch.kernels.quantize import quantize_blocks
 
-COMPRESSORS = ("none", "qgenx", "layerwise")
 # bucket rows of one chunk of Exchange.coded_bits_tree (2^16 x 512
 # coordinates: ~1.3 GB of temporaries at the peak of a chunk)
 CODED_CHUNK_ROWS = 1 << 16
@@ -191,6 +206,12 @@ class ExchangeConfig:
     (required > 0) from a ``qada_bins``-bin histogram, by
     ``qada_sweeps`` coordinate-descent sweeps of ``qada_bisect_iters``
     bisection steps.
+
+    The sparse compressors: ``rand_frac`` — the share of coordinates
+    ``randk`` and ``ef-randk`` keep; ``ef_topk_frac`` — ``ef21-topk``'s
+    (each in (0, 1]).  A contractive compressor cannot re-center
+    (``recenter_every`` must be 0): its memory tracks gradient
+    innovations.
     """
 
     compressor: str = "qgenx"
@@ -207,11 +228,11 @@ class ExchangeConfig:
     qada_bins: int = 512
     qada_sweeps: int = 2
     qada_bisect_iters: int = 20
+    rand_frac: float = 0.25
+    ef_topk_frac: float = 0.25
 
     def __post_init__(self):
-        if self.compressor not in COMPRESSORS:
-            raise ValueError(f"compressor {self.compressor!r} is not ported; "
-                             f"ported: {COMPRESSORS}")
+        comp = get_compressor(self.compressor)
         if self.compressor == "qgenx" and self.quant is None:
             raise ValueError("compressor='qgenx' requires ExchangeConfig.quant")
         if self.mode not in ("gather", "two_phase"):
@@ -228,6 +249,16 @@ class ExchangeConfig:
             raise ValueError(f"unknown level_schedule {self.level_schedule!r}")
         if self.level_schedule == "qada" and self.level_update_every <= 0:
             raise ValueError("level_schedule='qada' needs level_update_every > 0")
+        if not 0.0 < self.rand_frac <= 1.0:
+            raise ValueError(f"rand_frac must be in (0, 1], got {self.rand_frac}")
+        if not 0.0 < self.ef_topk_frac <= 1.0:
+            raise ValueError(f"ef_topk_frac must be in (0, 1], got {self.ef_topk_frac}")
+        if comp.has_error and self.recenter_every > 0:
+            raise ValueError(
+                f"compressor {self.compressor!r} (contractive contract) cannot re-center "
+                "parameters: the per-worker error memory tracks gradient innovations, and "
+                "a recenter exchange would fold iterate residuals into it; set "
+                "recenter_every=0")
 
 
 @dataclasses.dataclass
@@ -238,8 +269,10 @@ class ExchangeState:
     ``levels_lo`` (layerwise low-bit table), ``hist`` (QAda statistics
     since the last refresh: ``[qada_bins]`` under the qada schedule, a
     [1] placeholder otherwise), ``step`` (pmean calls made — a host int
-    here, read without a device sync), ``error`` (error-feedback memory)
-    and ``pending`` (defer_tail slot); the last two are [1] placeholders.
+    here, read without a device sync), ``error`` (the contractive tier's
+    ``[num_workers, n]`` error-feedback memory, replicated over the
+    workers; a [1] placeholder for every other compressor) and ``pending``
+    (defer_tail slot; a [1] placeholder).
     """
 
     levels: torch.Tensor
@@ -472,11 +505,40 @@ def _uniform_table(s: int, device: str) -> torch.Tensor:
     return uniform_levels(s, device)
 
 
+def _div_exact(x: torch.Tensor, K: int) -> torch.Tensor:
+    """``x / K`` in place, as a true division by f32(K) (the reference's
+    ``out / axis_size``): a divisor held on the host would let the card
+    multiply by 1/K, an ulp off for K = 3."""
+    return x.div_(torch.full((), float(K), dtype=torch.float32, device=x.device))
+
+
+def _null_error(device) -> torch.Tensor:
+    """The [1] error-memory placeholder of every unbiased compressor."""
+    return torch.zeros((1,), dtype=torch.float32, device=device)
+
+
 class NoneCompressor:
-    """Exact f32 mean — the control arm."""
+    """Exact f32 mean — the control arm.
+
+    The base of every compressor: ``contract`` is ``"unbiased"``
+    (E[compress(v)] = v) or ``"contractive"`` (E||C(v) - v||^2 <=
+    (1 - alpha)||v||^2 with alpha = :meth:`contraction_alpha`; those set
+    ``has_error`` and carry the per-worker memory ``ExchangeState.error``)."""
 
     name = "none"
+    contract = "unbiased"
     has_levels = False
+    has_error = False
+
+    def contraction_alpha(self, n, cfg):
+        raise NotImplementedError(f"compressor {self.name!r} declares the "
+                                  f"{self.contract!r} contract, which has no contraction "
+                                  "factor")
+
+    def init_error(self, n, num_workers, device):
+        """The error-memory slot this compressor carries (default: the [1]
+        placeholder)."""
+        return _null_error(device)
 
     def init_levels(self, cfg, device):
         lv = torch.tensor([0.0, 1.0], dtype=torch.float32, device=device)
@@ -617,7 +679,258 @@ class LayerwiseCompressor(QgenxCompressor):
         return _qada_solve(levels, hist, cfg), _qada_solve(levels_lo, hist, cfg)
 
 
-_COMPRESSORS = {c.name: c() for c in (NoneCompressor, QgenxCompressor, LayerwiseCompressor)}
+def _randk_k(n: int, cfg: ExchangeConfig) -> int:
+    return max(1, int(round(cfg.rand_frac * n)))
+
+
+def _kth_largest_bits(bits: torch.Tensor, k: int) -> int:
+    """The k-th largest of ``bits`` (int32 >= 0): the largest t with at
+    least k entries >= t, by bisection on t (31 counting passes, each one
+    compare and one count over the buffer; no sort)."""
+    lo, hi = 0, int(bits.max())
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if int(torch.count_nonzero(bits >= mid)) >= k:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+TOPK_TIE_CHUNK = 1 << 25  # coordinates scanned at a time for the tied indices
+
+
+def topk_support(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The index set of ``jax.lax.top_k(|x|, k)`` as int32, ascending.
+
+    ``top_k`` keeps the lower index first among equal magnitudes, which
+    ``torch.topk`` does not promise, and ``torch.topk`` sorts the whole
+    buffer past 1e5 coordinates.  So: the k-th largest |x| is found on the
+    bit patterns of |x| (f32 bits of a non-negative float order as the
+    floats do), every coordinate above it is kept, and the lowest-index
+    coordinates equal to it fill the set up to k (scanned in chunks, so
+    no index list of every tie is built)."""
+    n = x.shape[0]
+    if k >= n:
+        return torch.arange(n, dtype=torch.int32, device=x.device)
+    bits = x.abs().view(torch.int32)
+    t = _kth_largest_bits(bits, k)
+    above = torch.nonzero(bits > t).squeeze(1)
+    need = k - above.numel()
+    parts = [above.to(torch.int32)]
+    del above
+    for start in range(0, n, TOPK_TIE_CHUNK):
+        if need == 0:
+            break
+        tied = torch.nonzero(bits[start: start + TOPK_TIE_CHUNK] == t).squeeze(1)[:need]
+        parts.append(tied.to(torch.int32).add_(start))
+        need -= tied.numel()
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+class _SparseCompressor(NoneCompressor):
+    """k coordinates a worker: k f32 values and k int32 indices on the wire
+    (8k bytes), through the default plan group (one unquantized segment:
+    the flat concatenation, no padding)."""
+
+    rescale = False  # randk scales the kept values by n / k
+
+    def _k(self, n: int, cfg) -> int:
+        raise NotImplementedError
+
+    def _support(self, v: torch.Tensor, k: int, cfg, noise) -> torch.Tensor:
+        """int32 indices of the k coordinates kept of the flat ``v``."""
+        return noise.subset(v.shape[0], k, v.device)
+
+    def _compress_flat(self, v: torch.Tensor, cfg, noise) -> torch.Tensor:
+        n = v.shape[0]
+        k = self._k(n, cfg)
+        idx = self._support(v.float(), k, cfg, noise)
+        vals = v[idx]
+        if self.rescale:
+            vals = vals * (n / k)
+        out = torch.zeros_like(v)
+        out[idx] = vals
+        return out
+
+    def compress_tree(self, leaves, cfg, levels, noise, lead):
+        """Leaf by leaf, one support draw a leaf (the reference splits its
+        key per leaf); with a leading worker dim, worker by worker."""
+        rows = leaves[0].shape[0] if lead else 1
+        outs = [torch.empty_like(l) for l in leaves]
+        for w in range(rows):
+            for l, o in zip(leaves, outs):
+                v = l[w] if lead else l
+                (o[w] if lead else o).copy_(
+                    self._compress_flat(v.reshape(-1), cfg, noise).reshape(v.shape))
+        return outs
+
+    def wire_bytes(self, n, axis_size, cfg):
+        return 8.0 * self._k(n, cfg)  # 4 B value + 4 B index
+
+    def compress_wire_bytes(self, n, cfg):
+        return 8.0 * self._k(n, cfg)
+
+
+class RandKCompressor(_SparseCompressor):
+    """Unbiased rand-k: k = max(1, round(rand_frac * n)) coordinates drawn
+    uniformly without replacement, scaled by n / k so E[compress(v)] = v.
+    The mean all-gathers every worker's values and indices, scatter-adds
+    them into zeros one worker row at a time (a row's indices are
+    distinct, so each add is exact and the sum runs in worker order, as
+    the reference's scatter) and divides by K."""
+
+    name = "randk"
+    rescale = True
+
+    def _k(self, n, cfg):
+        return _randk_k(n, cfg)
+
+    def pmean_leaves(self, leaves, exchange, state, noise):
+        plan = exchange.plan_for(leaves)
+        flat = plan.pack(leaves)
+        n = flat.shape[0]
+        k = self._k(n, exchange.cfg)
+        idx = self._support(flat, k, exchange.cfg, noise)
+        vals = flat.index_select(0, idx).mul_(n / k)
+        del flat
+        record_wire("randk_vals", vals)
+        record_wire("randk_idx", idx)
+        comm = exchange.comm
+        all_vals, all_idx = comm.all_gather(vals), comm.all_gather(idx)
+        del vals, idx
+        out = torch.zeros((n,), dtype=torch.float32, device=all_vals.device)
+        for j in range(comm.size):
+            out.index_add_(0, all_idx[j], all_vals[j])
+        return plan.unpack(_div_exact(out, comm.size), leaves)
+
+
+class _ErrorFeedbackCompressor(_SparseCompressor):
+    """The contractive tier with EF21 error feedback (Richtarik et al.).
+    Per worker, with C the bare contraction (:meth:`compress_tree`: keep k
+    coordinates, no rescale)::
+
+        c_k  = C(g_k - h_k)      # the sparse innovation, shipped
+        h_k' = h_k + c_k         # the per-worker estimate
+        mean = (1/K) sum_k h_k'  # what the step consumes
+
+    ``h`` is ``ExchangeState.error`` ``[K, n]`` over the plan's flat buffer
+    (the live coordinate count: the segment is unquantized, so unpadded).
+    Every worker replays all K workers' gathered innovations into it, so
+    it stays replicated; the update is in place, and exact (each row's
+    indices are distinct).  Only :meth:`Exchange.pmean_tree` threads the
+    memory, so :meth:`pmean_leaves` raises."""
+
+    contract = "contractive"
+    has_error = True
+    wire_tag = "ef"
+
+    def contraction_alpha(self, n, cfg):
+        return self._k(n, cfg) / float(n)
+
+    def init_error(self, n, num_workers, device):
+        if n is None or num_workers is None:
+            return _null_error(device)  # the exchange raises if it meets this
+        return torch.zeros((int(num_workers), int(n)), dtype=torch.float32, device=device)
+
+    def _check_error(self, h: torch.Tensor, n: int, K: int) -> None:
+        if h.dim() != 2 or h.shape[1] != n:
+            raise ValueError(
+                f"compressor {self.name!r} (contractive contract) needs error memory of "
+                f"shape [num_workers, {n}], found {tuple(h.shape)}; initialize the state "
+                "with ex.init_state(device, template=params, num_workers=K)")
+        if h.shape[0] != K:
+            raise ValueError(
+                f"compressor {self.name!r}: error memory was initialized for {h.shape[0]} "
+                f"workers but the exchange has {K}")
+
+    def pmean_leaves(self, leaves, exchange, state, noise):
+        raise ValueError(
+            f"compressor {self.name!r} (contractive contract) must be called through "
+            "Exchange.pmean_tree, which threads the error memory back into ExchangeState")
+
+    def pmean_tree_ef(self, leaves, exchange, state, noise):
+        """One EF21 round on the packed buffer: ``(mean leaves, error)``,
+        ``error`` being ``state.error`` updated in place."""
+        plan = exchange.plan_for(leaves)
+        innov = plan.pack(leaves)
+        n = innov.shape[0]
+        comm = exchange.comm
+        h = state.error
+        self._check_error(h, n, comm.size)
+        innov.sub_(h[comm.rank])
+        idx = self._support(innov, self._k(n, exchange.cfg), exchange.cfg, noise)
+        vals = innov.index_select(0, idx)
+        del innov
+        record_wire(f"{self.wire_tag}_vals", vals)
+        record_wire(f"{self.wire_tag}_idx", idx)
+        all_vals, all_idx = comm.all_gather(vals), comm.all_gather(idx)
+        del vals, idx
+        for j in range(comm.size):
+            h[j].index_add_(0, all_idx[j], all_vals[j])
+        del all_vals, all_idx
+        mean = _div_exact(torch.sum(h, 0), comm.size)
+        return plan.unpack(mean, leaves), h
+
+    def ef_compress(self, v: torch.Tensor, err: torch.Tensor, cfg, noise):
+        """The collective-free EF21 update of W workers' rows (the toy-VI
+        loop): ``v``, ``err`` ``[W, n]`` -> ``(h', h')`` with ``h' = err +
+        C(v - err)`` row by row, one support draw a row in worker order;
+        the contribution to the mean is the new memory row."""
+        k = self._k(v.shape[-1], cfg)
+        innov = v.float() - err
+        h = err.clone()
+        for w in range(v.shape[0]):
+            idx = self._support(innov[w], k, cfg, noise)
+            h[w].index_add_(0, idx, innov[w][idx])
+        return h, h
+
+
+class EF21TopKCompressor(_ErrorFeedbackCompressor):
+    """EF21 with magnitude top-k: C keeps the max(1, round(ef_topk_frac *
+    n)) largest-|.| coordinates (deterministic: the contraction holds per
+    draw, and no draw is asked of the noise source)."""
+
+    name = "ef21-topk"
+    wire_tag = "ef21"
+
+    def _k(self, n, cfg):
+        return max(1, int(round(cfg.ef_topk_frac * n)))
+
+    def _support(self, v, k, cfg, noise):
+        return topk_support(v, k)
+
+
+class EFRandKCompressor(_ErrorFeedbackCompressor):
+    """Contractive rand-k: the EF21 recursion on a uniform support of
+    max(1, round(rand_frac * n)) coordinates, no n/k rescale (E||C(x) -
+    x||^2 = (1 - k/n)||x||^2 over the draw)."""
+
+    name = "ef-randk"
+    wire_tag = "ef_randk"
+
+    def _k(self, n, cfg):
+        return _randk_k(n, cfg)
+
+
+_COMPRESSORS = {c.name: c() for c in (NoneCompressor, QgenxCompressor, LayerwiseCompressor,
+                                      RandKCompressor, EF21TopKCompressor, EFRandKCompressor)}
+
+
+def get_compressor(name: str):
+    """Registry lookup; an unknown name raises ``ValueError`` listing the
+    registered names with their contract tiers."""
+    try:
+        return _COMPRESSORS[name]
+    except KeyError:
+        entries = ", ".join(f"'{n}' ({_COMPRESSORS[n].contract})" for n in sorted(_COMPRESSORS))
+        raise ValueError(f"unknown compressor {name!r}; registered: {entries}") from None
+
+
+def registered_compressors() -> tuple:
+    """The registered names, sorted (the train CLI's ``--compressor``
+    choices)."""
+    return tuple(sorted(_COMPRESSORS))
 
 
 def _qada_solve(levels: torch.Tensor, hist: torch.Tensor, cfg: ExchangeConfig) -> torch.Tensor:
@@ -652,15 +965,24 @@ class Exchange:
     def __init__(self, cfg: ExchangeConfig, comm):
         self.cfg = cfg
         self.comm = comm
-        self.compressor = _COMPRESSORS[cfg.compressor]
+        self.compressor = get_compressor(cfg.compressor)
 
-    def init_state(self, device) -> ExchangeState:
+    def init_state(self, device, template=None,
+                   num_workers: Optional[int] = None) -> ExchangeState:
+        """A fresh state on ``device``.  ``template`` (a params-shaped
+        pytree) and ``num_workers`` (K) size a contractive compressor's
+        zero ``[K, n]`` error memory, n the template's coordinate count;
+        without them it is a [1] placeholder, which the exchange refuses.
+        The unbiased compressors ignore both."""
         lv, lv_lo = self.compressor.init_levels(self.cfg, device)
-        ph = torch.zeros((1,), dtype=torch.float32, device=device)
         bins = self.cfg.qada_bins if self.cfg.level_schedule == "qada" else 1
+        n = None
+        if template is not None:
+            n = sum(xplan.size_of(l) for l in tree_flatten(template)[0])
         return ExchangeState(levels=lv, levels_lo=lv_lo,
                              hist=torch.zeros((bins,), dtype=torch.float32, device=device),
-                             step=0, error=ph.clone(), pending=ph)
+                             step=0, error=self.compressor.init_error(n, num_workers, device),
+                             pending=_null_error(device))
 
     # -- QAda ------------------------------------------------------------
 
@@ -733,16 +1055,25 @@ class Exchange:
         """Mean of a gradient pytree (flattened in JAX order) over the
         workers: none reduces leaf by leaf; qgenx packs the leaves through
         the plan into one buffer and exchanges it; layerwise exchanges each
-        segment of that buffer."""
+        segment of that buffer; randk and the contractive tier exchange k
+        coordinates of the packed buffer, the latter threading (and
+        updating in place) ``state.error``."""
         leaves, spec = tree_flatten(tree)
+        if self.compressor.has_error:
+            out, err = self.compressor.pmean_tree_ef(leaves, self, state, noise)
+            return tree_unflatten(spec, out), dataclasses.replace(self._advance(state),
+                                                                  error=err)
         out = self.compressor.pmean_leaves(leaves, self, state, noise)
         hist = self._tree_hist(leaves) if self._qada_active() else None
         return tree_unflatten(spec, out), self._advance(state, hist)
 
     def compress_tree(self, tree, noise, levels: Optional[torch.Tensor] = None,
                       workers: bool = False):
-        """Per-worker unbiased estimate of a pytree, no collectives: one
-        fused quantize∘dequantize over the planned buffer (kernel 5).
+        """Per-worker estimate of a pytree, no collectives: for the level-
+        table compressors one fused quantize∘dequantize over the planned
+        buffer (kernel 5); for the sparse ones each leaf on its own (one
+        support draw a leaf, worker by worker), the contractive tier's
+        being its bare contraction C (no rescale, biased).
 
         ``levels=None`` takes the uniform tables.  With ``workers=True``
         every leaf carries a leading worker dim and all workers' buffers go

@@ -35,15 +35,19 @@ in this order within a step:
   K oracle draws at X_{t+1/2}, K rounding draws;
 * ``da`` and ``optda``: K oracle draws at X_{t+1/2}, K rounding draws;
 
-with no rounding draws under full precision.  The reference draws these
-from ``split(key, 5)``'s oracle and quantization keys, each split K ways;
-replaying those arrays in this order reproduces its step.
+with no rounding draws under full precision.  Under the sparse
+compressors each rounding draw is a support draw instead (``subset``:
+``randk`` and ``ef-randk``; ``ef21-topk`` draws nothing).  The reference
+draws these from ``split(key, 5)``'s oracle and quantization keys, each
+split K ways; replaying those arrays in this order reproduces its step.
 :func:`qsgda_run` draws, per step, K oracle draws and then K rounding
 draws.
 
-The contractive (error-feedback) compressors are not ported: their
-names are rejected by ``ExchangeConfig`` (``ValueError``), so
-``QGenXState.ef_err`` stays zeros.
+``qgenx_run(exchange=ExchangeConfig(...))`` takes any compressor of the
+registry.  Under a contractive one (``ef21-topk``, ``ef-randk``) each
+worker's EF21 memory ``QGenXState.ef_err`` ``[K, d]`` threads through
+the step's exchanges in order (``ef_compress``: the new memory row is
+the worker's contribution); otherwise it stays zeros.
 """
 
 from __future__ import annotations
@@ -77,9 +81,9 @@ def adaptive_gamma(sum_sq: torch.Tensor, K: int, scale: float) -> torch.Tensor:
 class QGenXConfig:
     """``variant`` ``da`` | ``de`` | ``optda``; ``num_workers`` K;
     ``quant`` (shorthand for a qgenx exchange) or a full ``exchange``
-    config (None of both: full precision); ``level_update_every`` the
-    QAda period in steps (0: fixed levels); ``gamma_scale`` a scale on the
-    adaptive step-size."""
+    config, any compressor of the registry (None of both: full
+    precision); ``level_update_every`` the QAda period in steps (0: fixed
+    levels); ``gamma_scale`` a scale on the adaptive step-size."""
 
     variant: str = "de"
     num_workers: int = 4
@@ -108,7 +112,8 @@ class QGenXState:
     feedback ``prev_half`` [K, d] (optda), the level table, the ergodic
     average ``x_avg`` of X_{t+1/2}, the iteration count ``t`` (a host
     int), the cumulative per-worker fixed-width ``bits_sent`` (f32 scalar)
-    and the error-feedback memory ``ef_err`` [K, d] (zeros: not ported)."""
+    and the error-feedback memory ``ef_err`` [K, d] (zeros unless the
+    compressor is contractive)."""
 
     x: torch.Tensor
     y: torch.Tensor
@@ -146,13 +151,17 @@ def _per_iter_bits(d: int, ex: Optional[Exchange]) -> float:
     return 32.0 * d if ex is None else 8.0 * ex.compress_wire_bytes(d)
 
 
-def _estimates(v: torch.Tensor, levels: torch.Tensor, noise,
-               ex: Optional[Exchange]) -> torch.Tensor:
-    """Each worker's unbiased estimate of its row of ``v`` [K, d]
-    (identity under full precision)."""
+def _estimates(v: torch.Tensor, levels: torch.Tensor, ef_err: torch.Tensor, noise,
+               ex: Optional[Exchange]) -> tuple:
+    """Each worker's estimate of its row of ``v`` [K, d] (identity under
+    full precision) and the error memory after it: under a contractive
+    compressor the EF21 update of ``ef_err`` (its new rows are the
+    estimates), else ``ef_err`` untouched."""
     if ex is None:
-        return v
-    return ex.compress_with_levels(v, levels, noise, workers=True)
+        return v, ef_err
+    if ex.compressor.has_error:
+        return ex.compressor.ef_compress(v, ef_err, ex.cfg, noise)
+    return ex.compress_with_levels(v, levels, noise, workers=True), ef_err
 
 
 def _oracles(oracle: Callable, z: torch.Tensor, noise, K: int) -> torch.Tensor:
@@ -170,18 +179,22 @@ def qgenx_step(state: QGenXState, oracle: Callable, noise, cfg: QGenXConfig,
     ex = ex if ex is not None else cfg.make_exchange()
     gamma_t = adaptive_gamma(state.sum_sq, K, cfg.gamma_scale)
 
-    # extrapolation feedback Vhat_{k,t}, per the oracle schedule
+    # extrapolation feedback Vhat_{k,t}, per the oracle schedule; the EF
+    # memory threads through the exchanges in order
+    ef_err = state.ef_err
     if method.uses_prev_half:  # optda: carried feedback, no fresh broadcast
         v_hat_t = state.prev_half
     elif method.oracle_calls == 2:  # de: fresh oracle + broadcast at X_t
-        v_hat_t = _estimates(_oracles(oracle, state.x, noise, K), state.levels, noise, ex)
+        v_hat_t, ef_err = _estimates(_oracles(oracle, state.x, noise, K), state.levels,
+                                     ef_err, noise, ex)
     else:  # da: zero feedback, nothing to communicate
         v_hat_t = torch.zeros((K, d), dtype=torch.float32, device=state.x.device)
 
     x_half = half_step(state.x, torch.sum(v_hat_t, dim=0) / K, gamma_t)
 
     # the (always fresh) half-step exchange Vhat_{k,t+1/2}
-    v_hat_half = _estimates(_oracles(oracle, x_half, noise, K), state.levels, noise, ex)
+    v_hat_half, ef_err = _estimates(_oracles(oracle, x_half, noise, K), state.levels, ef_err,
+                                    noise, ex)
     y_next = dual_step(state.y, torch.sum(v_hat_half, dim=0) / K)
 
     sum_sq = state.sum_sq + sq_increment(v_hat_t, v_hat_half)
@@ -201,7 +214,7 @@ def qgenx_step(state: QGenXState, oracle: Callable, noise, cfg: QGenXConfig,
     return QGenXState(x=x_next, y=y_next, sum_sq=sum_sq, prev_half=v_hat_half,
                       levels=levels, x_avg=x_avg, t=t_next,
                       bits_sent=state.bits_sent + method.exchanges * _per_iter_bits(d, ex),
-                      ef_err=state.ef_err)
+                      ef_err=ef_err)
 
 
 def qgenx_run(x0: torch.Tensor, oracle: Callable, cfg: QGenXConfig, noise, num_steps: int,
@@ -231,7 +244,7 @@ def qsgda_run(x0: torch.Tensor, oracle: Callable, noise, num_steps: int, num_wor
     x = torch.as_tensor(x0).to(device=device, dtype=torch.float32)
     x_avg = torch.zeros_like(x)
     for t in range(1, num_steps + 1):
-        v = _estimates(_oracles(oracle, x, noise, num_workers), levels, noise, ex)
+        v, _ = _estimates(_oracles(oracle, x, noise, num_workers), levels, None, noise, ex)
         x = x - lr * torch.mean(v, dim=0)
         x_avg = x_avg + (x - x_avg) / float(t)
     return x, x_avg

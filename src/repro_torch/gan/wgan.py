@@ -201,8 +201,9 @@ def energy_distance(params, cfg: GANConfig, n: int = 1024, *, generator=None,
 
 def grad_bytes(params, ex: Optional[Exchange]) -> float:
     """Per-worker broadcast bytes of one compressed dual vector: the flat
-    payload for qgenx, the plan's segments for policy compressors, 4 B per
-    coordinate without an exchange."""
+    payload for qgenx, the plan's segments for layerwise, 8 B a kept
+    coordinate of each leaf for randk (``compress_wire_bytes_tree``), 4 B
+    per coordinate without an exchange."""
     n = sum(l.numel() for l in tree_leaves(params))
     if ex is None:
         return 4.0 * n

@@ -15,9 +15,14 @@ One step on each worker:
   -> gradient -> exchange -> commit (one); ``adam``: gradient ->
   exchange -> Adam step (one).
 
-The exchange is :class:`repro_torch.core.exchange.Exchange` (qgenx,
-layerwise, or the exact ``none`` control); its quantize/dequantize steps
-run the CUDA kernels for CUDA tensors.  PyTorch runs eagerly, so the step mutates the
+The exchange is :class:`repro_torch.core.exchange.Exchange` (any
+compressor of its registry, the exact ``none`` control included); the
+quantize/dequantize steps of qgenx and layerwise run the CUDA kernels
+for CUDA tensors.  Under a contractive compressor (``ef21-topk``,
+``ef-randk``) the qgenx gamma statistic is taken from the exchanged
+estimates, ``||ghat_t - ghat_{t+1/2}||^2``, in place of the raw local
+oracles (``de`` keeps the first mean until the second exchange), and
+the error memory ``ex_state.error`` moves only on steps that exchange.  PyTorch runs eagerly, so the step mutates the
 model's parameters in place (X_{t+1/2} while the second gradient is taken,
 then X_{t+1}) and returns the new optimizer and exchange states with the
 metrics.
@@ -103,6 +108,10 @@ def make_train_step(model, opt_cfg: OptimizerConfig, exchange: Exchange):
     cfg = exchange.cfg
     n_params = sum(p.numel() for p in params)
     probe_bytes = 4.0 * min(cfg.drift_probe, n_params)
+    # under a contractive compressor the raw local gradient is no proxy for
+    # the estimate the EF recursion applies: the gamma statistic takes the
+    # exchanged estimates instead (the reference's rule)
+    contractive = exchange.compressor.has_error
 
     def grad_at(batch):
         loss = loss_fn(batch)
@@ -137,17 +146,18 @@ def make_train_step(model, opt_cfg: OptimizerConfig, exchange: Exchange):
             _assign(params, qgenx_opt.extrapolate(opt_cfg, params, opt_state, ghat1, K))
             loss, g2 = grad_at(batch)
             ghat2, ex_state = exchange_grads(g2, ex_state)
-            sq = qgenx_opt.local_sq_diff(ghat1, g2)
+            sq = qgenx_opt.local_sq_diff(ghat1, ghat2 if contractive else g2)
             prev_half = ghat2
         else:
             _, g1 = grad_at(batch)
             ghat1, ex_state = exchange_grads(g1, ex_state)
             _assign(params, qgenx_opt.extrapolate(opt_cfg, params, opt_state, ghat1, K))
-            del ghat1
+            first = ghat1 if contractive else g1  # the half of the pair sq needs
+            del g1, ghat1
             loss, g2 = grad_at(batch)
             ghat2, ex_state = exchange_grads(g2, ex_state)
-            sq = qgenx_opt.local_sq_diff(g1, g2)
-            del g1
+            sq = qgenx_opt.local_sq_diff(first, ghat2 if contractive else g2)
+            del first
             prev_half = None
         del g2
         sq = comm.all_reduce_sum(sq)

@@ -2,10 +2,12 @@
 
 Trains a dense decoder with ExtraAdam (the default, as in the reference
 CLI), Adam, optimistic Adam or the paper's adaptive Q-GenX optimizer, and
-the quantized gradient exchange (``--compressor qgenx | layerwise |
-none``), on ``cuda`` (default) or, when asked, ``--device cpu``.  One process is one worker; for K > 1 workers launch it
-under ``torchrun`` (NCCL on the card, gloo on the CPU), which sets the
-rank and world size read here::
+the gradient exchange (``--compressor`` any name of the registry: qgenx,
+layerwise, none, randk, ef21-topk, ef-randk; ``--rand-frac`` /
+``--ef-topk-frac`` set the sparse ones' share), on ``cuda`` (default)
+or, when asked, ``--device cpu``.  One process is one worker; for K > 1
+workers launch it under ``torchrun`` (NCCL on the card, gloo on the
+CPU), which sets the rank and world size read here::
 
     python -m repro_torch.launch.train --arch tinyllama-1.1b --reduced \\
         --steps 20 --batch 8 --seq 128 --compression int8
@@ -13,6 +15,8 @@ rank and world size read here::
         --compression int8
     torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --arch tinyllama-1.1b --reduced --compression int4 --compressor layerwise
+    python -m repro_torch.launch.train --reduced --optimizer qgenx \\
+        --compressor ef21-topk --ef-topk-frac 0.25
 
 Unlike the reference CLI, the exchange runs at K = 1 too whenever there is
 something to compress (the world-size-1 communicator), so one card drives
@@ -56,11 +60,11 @@ from repro_torch.checkpoint import checkpointing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import ARCHS, get_config
 from repro_torch.core.exchange import (
-    COMPRESSORS,
     ExchangeConfig,
     ProcessGroupComm,
     SingleWorker,
     make_exchange,
+    registered_compressors,
 )
 from repro_torch.core.noise import GeneratorNoise
 from repro_torch.core.quantization import QuantConfig
@@ -78,23 +82,27 @@ def build_exchange_config(args) -> ExchangeConfig:
     reference's quantizer (bucket 512, s = 15 for int8 and s = 5 for int4,
     uniform levels): qgenx's, or layerwise's low-bit one for large leaves.
     qgenx with ``--compression none`` is the exact f32 control (compressor
-    none).  A pair that contradicts itself raises ``ValueError``:
-    ``--compressor none`` with a quantizer, or layerwise without one."""
+    none).  The sparse compressors (randk, ef21-topk, ef-randk) send f32
+    values and take ``--rand-frac`` / ``--ef-topk-frac``; a quantizer,
+    when given, rides along unused, as in the reference.  A pair that
+    contradicts itself raises ``ValueError``: ``--compressor none`` with
+    a quantizer, or layerwise without one."""
     if args.compressor == "none" and args.compression != "none":
         raise ValueError(f"--compressor none sends f32: drop --compression "
                          f"{args.compression}")
     if args.compressor == "layerwise" and args.compression == "none":
         raise ValueError("--compressor layerwise needs --compression int8 or int4 "
                          "(its quantizer for leaves above the threshold)")
-    local = dict(sync_every=args.sync_every, recenter_every=args.recenter_every,
-                 level_schedule=args.level_schedule,
-                 level_update_every=args.level_update_every)
-    if args.compression == "none":
-        return ExchangeConfig(compressor="none", mode=args.compress_mode, **local)
-    bits = 8 if args.compression == "int8" else 4
-    quant = QuantConfig(num_levels=15 if bits == 8 else 5, bits=bits, bucket_size=512)
-    return ExchangeConfig(compressor=args.compressor, quant=quant, mode=args.compress_mode,
-                          **local)
+    quant = None
+    if args.compression != "none":
+        bits = 8 if args.compression == "int8" else 4
+        quant = QuantConfig(num_levels=15 if bits == 8 else 5, bits=bits, bucket_size=512)
+    compressor = "none" if args.compressor == "qgenx" and quant is None else args.compressor
+    return ExchangeConfig(compressor=compressor, quant=quant, mode=args.compress_mode,
+                          sync_every=args.sync_every, recenter_every=args.recenter_every,
+                          level_schedule=args.level_schedule,
+                          level_update_every=args.level_update_every,
+                          rand_frac=args.rand_frac, ef_topk_frac=args.ef_topk_frac)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -112,7 +120,7 @@ def parser() -> argparse.ArgumentParser:
                     help="qgenx oracle schedule")
     ap.add_argument("--gamma-scale", type=float, default=0.02)
     ap.add_argument("--compression", default="none", choices=("none", "int8", "int4"))
-    ap.add_argument("--compressor", default="qgenx", choices=COMPRESSORS)
+    ap.add_argument("--compressor", default="qgenx", choices=registered_compressors())
     ap.add_argument("--compress-mode", default="two_phase", choices=("two_phase", "gather"))
     ap.add_argument("--sync-every", type=int, default=1,
                     help="local-update regime: K local steps between exchanges "
@@ -123,6 +131,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--level-schedule", default="fixed", choices=("fixed", "qada"))
     ap.add_argument("--level-update-every", type=int, default=0,
                     help="QAda refresh period in exchange calls (qada schedule)")
+    ap.add_argument("--rand-frac", type=float, default=0.25,
+                    help="randk / ef-randk: fraction of coordinates kept per worker")
+    ap.add_argument("--ef-topk-frac", type=float, default=0.25,
+                    help="ef21-topk: fraction of innovation coordinates each worker ships")
     ap.add_argument("--checkpoint-dir", default="")
     ap.add_argument("--checkpoint-every", type=int, default=0)
     ap.add_argument("--allow-ckpt-reset", action="store_true",
@@ -221,8 +233,10 @@ def run(args, log=print, exchange: Optional[ExchangeConfig] = None,
     ``coded_bits_est`` and ``step_s``, with ``start_step`` (the restored
     step, else 0), ``restored`` (the restore's step, checkpoint bytes and
     seconds, or None), ``saves`` (each save's step, bytes and
-    seconds) and ``levels`` (the final primary level table as a list,
-    None for the exact ``none`` compressor).  ``exchange`` replaces the exchange config the flags give
+    seconds), ``levels`` (the final primary level table as a list,
+    None for a compressor without one) and ``ex_state`` (the final
+    exchange state, with the contractive tier's error memory).
+    ``exchange`` replaces the exchange config the flags give
     (for fields that have no flag, such as ``use_device_prng``);
     ``config`` replaces the model config of ``--arch`` / ``--reduced``
     (``--dtype`` still applies)."""
@@ -240,7 +254,8 @@ def run(args, log=print, exchange: Optional[ExchangeConfig] = None,
                                   gamma_scale=args.gamma_scale, method=args.method)
         opt_state = opt.init_state(opt_cfg, model.param_leaves())
         ex = make_exchange(exchange or build_exchange_config(args), comm)
-        ex_state = ex.init_state(device)
+        # the template and K size a contractive compressor's error memory
+        ex_state = ex.init_state(device, template=model.param_leaves(), num_workers=world)
         step_fn = make_train_step(model, opt_cfg, ex)
         pipe = make_pipeline(cfg.vocab_size, args.batch, args.seq, seed=args.seed)
         rows = slice(rank * args.batch // world, (rank + 1) * args.batch // world)
@@ -291,6 +306,7 @@ def run(args, log=print, exchange: Optional[ExchangeConfig] = None,
             out["saves"].append(_save(ckpt, args.steps, model, opt_state, ex_state,
                                       rank, world))
         out["levels"] = ex_state.levels.tolist() if ex.compressor.has_levels else None
+        out["ex_state"] = ex_state
         if rank == 0 and ex.cfg.level_schedule == "qada" and out["levels"] is not None:
             log(f"[train] qada levels={np.round(np.asarray(out['levels']), 4)}")
         return out

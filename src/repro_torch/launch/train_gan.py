@@ -7,11 +7,12 @@ K simulated workers, fp32 against compressed exchanges
     python -m repro_torch.launch.train_gan --device cpu --steps 50
 
 Arms: fp32 (no exchange), uq8 (qgenx, s = 15, 8 bit, bucket 512, q = inf),
-uq4 (s = 5, 4 bit) and layerwise (uq4 for leaves above 2048 coordinates,
-so the 64 x 64 hidden matrices take the low-bit path; uq8 for the rest).
-The randk arm (``--arms randk25``) raises ``ValueError``: randk is not
-ported yet.  Prints energy distance, median ms/step and bytes per step per
-worker for each arm.  No flag selects the device-PRNG exchange (the
+uq4 (s = 5, 4 bit), randk25 (unbiased rand-k keeping a quarter of each
+leaf's coordinates, scaled by n/k: ``python -m
+repro_torch.launch.train_gan --arms randk25``) and layerwise (uq4 for
+leaves above 2048 coordinates, so the 64 x 64 hidden matrices take the
+low-bit path; uq8 for the rest).  Prints energy distance, median ms/step
+and bytes per step per worker for each arm.  No flag selects the device-PRNG exchange (the
 reference has none): it is ``GANConfig(exchange=ExchangeConfig(...,
 use_device_prng=True))`` passed to :func:`repro_torch.gan.wgan.train`.
 """
@@ -28,7 +29,6 @@ from repro_torch.gan.wgan import GANConfig, train
 UQ8 = QuantConfig(num_levels=15, bits=8, bucket_size=512, q_norm=math.inf)
 UQ4 = QuantConfig(num_levels=5, bits=4, bucket_size=512, q_norm=math.inf)
 ARMS = ("fp32", "uq8", "uq4", "randk25", "layerwise")
-PORTED_ARMS = ("fp32", "uq8", "uq4", "layerwise")
 
 
 def arm_exchange(tag: str):
@@ -44,7 +44,7 @@ def arm_exchange(tag: str):
         # leaves take the low-bit path (the policy is strict >)
         return ExchangeConfig(compressor="layerwise", quant=UQ4, layerwise_threshold=2048)
     if tag == "randk25":
-        return ExchangeConfig(compressor="randk")  # raises: randk is not ported
+        return ExchangeConfig(compressor="randk", rand_frac=0.25)
     raise ValueError(f"unknown arm {tag!r}; one of {ARMS}")
 
 
@@ -52,7 +52,7 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train_gan")
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--workers", type=int, default=3)
-    ap.add_argument("--arms", nargs="+", choices=ARMS, default=list(PORTED_ARMS))
+    ap.add_argument("--arms", nargs="+", choices=ARMS, default=list(ARMS))
     ap.add_argument("--device", default="cuda", help="cuda (default) | cpu")
     return ap
 

@@ -5,8 +5,10 @@ it imports torch and the port only.  Each worker joins a process group on
 a ``FileStore``, runs every case's quantized mean on its own vector with
 the noise it was handed, or with the device-PRNG exchange where it was
 handed seeds instead (:func:`run`; :func:`run_layerwise` takes the
-layerwise ``Exchange.pmean_tree`` of a small pytree instead), saves the
-result and destroys the group.  :func:`run_group` starts the workers,
+layerwise ``Exchange.pmean_tree`` of a small pytree instead,
+:func:`run_sparse` the sparse compressors' chained ``pmean_tree`` with
+their support draws replayed, :func:`run_sparse_step` the train step
+under them), saves the result and destroys the group.  :func:`run_group` starts the workers,
 joins them under a hard timeout and returns their outputs.
 """
 
@@ -224,6 +226,134 @@ def run_step(rank, world, store_path, in_path, out_dir, cases, backend, device):
                 res["opt_sum_sq"] = state.sum_sq
             res["wire_names"] = np.asarray([nm for nm, _ in trace or []], dtype=str)
             res["wire_nbytes"] = np.asarray([nb for _, nb in trace or []], np.int64)
+            np.savez(f"{out_dir}/out_{i}_{rank}.npz", **res)
+    finally:
+        dist.destroy_process_group()
+
+
+SPARSE_TREE = {"a": (3, 5), "b": (7,), "c": (40, 50)}  # 2022 coordinates
+
+
+def sparse_config(compressor, frac):
+    from repro_torch.core.exchange import ExchangeConfig
+
+    return ExchangeConfig(compressor=compressor, rand_frac=frac, ef_topk_frac=frac)
+
+
+def run_sparse(rank, world, store_path, in_path, out_dir, cases, backend, device):
+    """Each case ``(compressor, frac, calls)``: ``calls`` chained
+    ``Exchange.pmean_tree`` calls of this worker's trees (keys
+    ``{leaf}_{case}_{call}_{rank}``), the state (and so a contractive
+    compressor's ``[K, n]`` error memory, zero at first) threaded through,
+    each call's support draw replayed from ``sup_{case}_{call}_{rank}``
+    where one is given; then ``compress_tree`` of call 0's tree with the
+    draws ``csup_{case}_{leaf}_{rank}``.  Saves per call the mean's leaves
+    concatenated in tree order (``mean_{call}``), the final error memory,
+    the compressed tree (``compressed``) and the wire recorder's list."""
+    import torch
+
+    from repro_torch.core import exchange as xmod
+    from repro_torch.core.noise import ReplayNoise
+
+    dev = torch.device(device)
+    data = np.load(in_path)
+    dist.init_process_group(backend, store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        for i, (compressor, frac, calls) in enumerate(cases):
+            ex = xmod.make_exchange(sparse_config(compressor, frac), xmod.ProcessGroupComm())
+            trees = [{name: torch.from_numpy(data[f"{name}_{i}_{c}_{rank}"]).to(dev)
+                      for name in SPARSE_TREE} for c in range(calls)]
+            state = ex.init_state(dev, template=trees[0], num_workers=world)
+            draws = [data[f"sup_{i}_{c}_{rank}"] for c in range(calls)
+                     if f"sup_{i}_{c}_{rank}" in data.files]
+            noise = ReplayNoise(draws)
+            res = {}
+            xmod.wire_trace_start()
+            for c, tree in enumerate(trees):
+                mean, state = ex.pmean_tree(tree, state, noise)
+                res[f"mean_{c}"] = np.concatenate([mean[k].cpu().numpy().ravel()
+                                                   for k in sorted(mean)])
+            trace = xmod.wire_trace_stop()
+            cdraws = [data[f"csup_{i}_{k}_{rank}"] for k in sorted(SPARSE_TREE)
+                      if f"csup_{i}_{k}_{rank}" in data.files]
+            cnoise = ReplayNoise(cdraws)
+            out = ex.compress_tree(trees[0], cnoise)
+            if noise.remaining or cnoise.remaining:
+                raise RuntimeError("not every support draw was used")
+            res["compressed"] = np.concatenate([out[k].cpu().numpy().ravel()
+                                                for k in sorted(out)])
+            res["error"] = state.error.cpu().numpy()
+            res["steps"] = np.asarray(state.step)
+            res["wire_names"] = np.asarray([nm for nm, _ in trace], dtype=str)
+            res["wire_nbytes"] = np.asarray([nb for _, nb in trace], np.int64)
+            np.savez(f"{out_dir}/out_{i}_{rank}.npz", **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_sparse_step(rank, world, store_path, in_path, out_dir, cases, backend, device):
+    """Each case ``(name, compressor, method, frac, steps)`` of
+    ``_torch_sparse_step_k2_reference.CASES``: the port's qgenx train step
+    on reduced tinyllama-1.1b from the reference's initial params, on this
+    worker's rows of each step's batch, the error memory from
+    ``init_state(template=params, num_workers=world)`` and this worker's
+    support draws replayed (``{name}_sup_{rank}_{i}``).  Saves per case the
+    metrics, the final params (``p_{j}``), the optimizer's ``count`` and
+    ``sum_sq``, the final error memory and the wire recorder's list of
+    the first step."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import opt_state_to_jax, params_from_jax
+    from repro_torch.core import exchange as xmod
+    from repro_torch.core.noise import ReplayNoise
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import build
+    from repro_torch.optim import optimizers as opt
+    from repro_torch.optim.optimizers import OptimizerConfig
+
+    dev = torch.device(device)
+    data = np.load(in_path)
+    dist.init_process_group(backend, store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        for i, (name, compressor, method, frac, steps) in enumerate(cases):
+            n_leaves = sum(1 for k in data.files if k.startswith("p0_"))
+            model = params_from_jax([data[f"p0_{j}"] for j in range(n_leaves)],
+                                    build(get_config("tinyllama-1.1b").reduced(), device=dev))
+            ex = xmod.make_exchange(sparse_config(compressor, frac), xmod.ProcessGroupComm())
+            opt_cfg = OptimizerConfig(name="qgenx", gamma_scale=0.02, method=method)
+            step = make_train_step(model, opt_cfg, ex)
+            opt_state = opt.init_state(opt_cfg, model.param_leaves())
+            ex_state = ex.init_state(dev, template=model.param_leaves(), num_workers=world)
+            draws = sorted((k for k in data.files if k.startswith(f"{name}_sup_{rank}_")),
+                           key=lambda k: int(k.rsplit("_", 1)[1]))
+            noise = ReplayNoise([data[k] for k in draws])
+            rows = slice(rank * 2, rank * 2 + 2)
+            loss, wire, trace = [], [], None
+            for t in range(steps):
+                batch = to_device({"tokens": data[f"tokens_{t}"],
+                                   "labels": data[f"labels_{t}"]}, dev, rows)
+                if t == 0:
+                    xmod.wire_trace_start()
+                opt_state, ex_state, m = step(opt_state, ex_state, batch, noise)
+                if t == 0:
+                    trace = xmod.wire_trace_stop()
+                loss.append(float(m["loss"]))
+                wire.append(float(m["wire_bytes"]))
+            if noise.remaining:
+                raise RuntimeError("not every support draw was used")
+            res = {"loss": np.asarray(loss, np.float64), "wire_bytes": np.asarray(wire, np.float64),
+                   "error": ex_state.error.cpu().numpy()}
+            for j, p in enumerate(model.param_leaves()):
+                res[f"p_{j}"] = p.detach().cpu().numpy()
+            state = opt_state_to_jax(opt_state, model)
+            res["opt_count"] = state.count
+            res["opt_sum_sq"] = state.sum_sq
+            res["wire_names"] = np.asarray([nm for nm, _ in trace], dtype=str)
+            res["wire_nbytes"] = np.asarray([nb for _, nb in trace], np.int64)
             np.savez(f"{out_dir}/out_{i}_{rank}.npz", **res)
     finally:
         dist.destroy_process_group()

@@ -54,20 +54,32 @@ def test_constructors_take_no_default_device(make):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(compressor="randk"), dict(compressor="ef-randk"),
-    dict(compressor="ef21-topk"), dict(compressor="qgenx"),
+    dict(compressor="qgenx"),
     # kwargs5: QAda is ported; without a refresh period it is invalid
     # (ValueError, as in the reference)
     dict(quant=Q8, mode="leafwise"), dict(quant=Q8, level_schedule="qada"),
     dict(quant=Q8, drift_probe=0), dict(quant=Q8, recenter_every=-1),
     dict(quant=Q8, num_buckets=2, overlap="bucketed"), dict(quant=Q8, allreduce_fallback=True),
     dict(quant=Q8, use_plan=False), dict(quant=Q8, level_schedule="bogus"),
-])
+], ids=[f"kwargs{i}" for i in range(3, 12)])  # kwargs0-2 were randk / ef-randk / ef21-topk
 def test_unported_exchange_options_are_rejected(kwargs):
     # an unported (or invalid) value raises ValueError; a field the slice
     # does not have yet is an unknown keyword, TypeError
     with pytest.raises((TypeError, ValueError)):
         ExchangeConfig(**kwargs)
+
+
+@pytest.mark.parametrize("compressor", ["randk", "ef21-topk", "ef-randk"])
+def test_sparse_compressors_build_and_validate_their_fractions(compressor):
+    cfg = ExchangeConfig(compressor=compressor, rand_frac=0.5, ef_topk_frac=0.1)
+    assert (cfg.rand_frac, cfg.ef_topk_frac) == (0.5, 0.1)
+    assert make_exchange(cfg).compressor.name == compressor
+    for field in ("rand_frac", "ef_topk_frac"):
+        assert getattr(ExchangeConfig(compressor=compressor), field) == 0.25
+        assert getattr(ExchangeConfig(compressor=compressor, **{field: 1.0}), field) == 1.0
+        for bad in (0.0, -0.25, 1.5):
+            with pytest.raises(ValueError, match=field):
+                ExchangeConfig(compressor=compressor, **{field: bad})
 
 
 def test_device_prng_option_is_accepted():
@@ -120,11 +132,23 @@ def test_contradictory_compressor_flags_raise(argv):
         train.build_exchange_config(train.parser().parse_args(argv))
 
 
-@pytest.mark.parametrize("argv", [["--compressor", "randk"], ["--optimizer", "sgd"],
+@pytest.mark.parametrize("argv", [["--overlap", "bucketed"], ["--optimizer", "sgd"],
                                   ["--guard"], ["--no-exchange-plan"]])
 def test_train_cli_has_no_unported_flags(argv, capsys):
     with pytest.raises(SystemExit):
         train.parser().parse_args(argv)
+
+
+@pytest.mark.parametrize("argv,compressor,rand_frac,ef_topk_frac", [
+    (["--compressor", "ef21-topk", "--ef-topk-frac", "0.1"], "ef21-topk", 0.25, 0.1),
+    (["--compressor", "randk", "--rand-frac", "0.3"], "randk", 0.3, 0.25),
+    (["--compressor", "ef-randk", "--rand-frac", "0.05", "--compression", "int8"],
+     "ef-randk", 0.05, 0.25),
+])
+def test_train_cli_sparse_compressor_flags(argv, compressor, rand_frac, ef_topk_frac):
+    cfg = train.build_exchange_config(train.parser().parse_args(argv))
+    assert (cfg.compressor, cfg.rand_frac, cfg.ef_topk_frac) == (compressor, rand_frac,
+                                                                 ef_topk_frac)
 
 
 def test_kernel_build_failure_raises(monkeypatch, tmp_path):

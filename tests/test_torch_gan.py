@@ -22,6 +22,8 @@ orders):
   normalized update that coordinate can move by at most a few learning
   rates; all other coordinates are held to rtol 1e-5 / atol 1e-6, and at
   most 1e-3 of the coordinates may be off;
+* the randk25 arm: ``compress_tree`` bit for bit and 3 steps with every
+  draw (its supports included) replayed at the fp32 arm's bar;
 * the energy distance on the same point sets: 1e-5 absolute (its three
   terms are f32 means of 2^20 distances of order 1, summed in different
   orders);
@@ -60,6 +62,7 @@ JAX_ARMS = {
     "layerwise": JaxExchangeConfig(compressor="layerwise",
                                    quant=JaxQuant(num_levels=5, bits=4, bucket_size=512),
                                    layerwise_threshold=2048),
+    "randk25": JaxExchangeConfig(compressor="randk", rand_frac=0.25),
 }
 ROWS = 19  # ceil(9283 coordinates / bucket 512), for every compressed arm
 
@@ -228,14 +231,66 @@ def test_grad_bytes_match(ref_params, arm):
     assert got == want
 
 
-def test_randk_arm_is_not_ported():
-    with pytest.raises(ValueError, match="randk"):
-        train_gan.arm_exchange("randk25")
+def _randk_draws(key, params_np):
+    """The randk25 arm's support draws of one exchange keyed ``key``, in the
+    port's order: worker by worker (``split(key, K)``), leaf by leaf (each
+    worker's key split once per leaf, JAX leaf order)."""
+    sizes = [a.size for a in _leaves(params_np)]
+    out = []
+    for wk in jax.random.split(key, K):
+        for lk, n in zip(jax.random.split(wk, len(sizes)), sizes):
+            out.append(np.asarray(jax.random.permutation(lk, n)[:max(1, round(0.25 * n))]))
+    return out
+
+
+def test_randk25_arm_matches_reference(ref_params):
+    """The randk25 arm (``ExchangeConfig(compressor="randk",
+    rand_frac=0.25)``, as ``examples/train_gan.py`` has it): compress_tree
+    of the reference's gradients bit for bit, then 3 steps with every
+    draw replayed (params at the fp32 arm's bar: the supports are the
+    reference's, so only the last bits of the gradients differ), and its
+    bytes per step."""
+    assert train_gan.arm_exchange("randk25") == wgan.GANConfig(
+        exchange=train_gan.arm_exchange("randk25")).exchange
+    jex = jax_make_exchange(JAX_ARMS["randk25"])
+    grads = jax.vmap(lambda r, k: jgan._game_grads(
+        jax.tree_util.tree_map(jnp.asarray, ref_params), r, k, jgan.GANConfig()))(
+        jnp.asarray(_real(3)), jax.random.split(jax.random.PRNGKey(7), K))
+    key = jax.random.PRNGKey(9)
+    want = jax.vmap(jex.compress_tree)(grads, jax.random.split(key, K))
+    tex = make_exchange(train_gan.arm_exchange("randk25"))
+    noise = ReplayNoise(_randk_draws(key, ref_params))
+    got = tex.compress_tree(tree_map(lambda a: torch.from_numpy(np.array(a)), grads), noise,
+                            workers=True)
+    assert noise.remaining == 0
+    for a, b in zip(_port_leaves(got), _leaves(want)):
+        np.testing.assert_array_equal(a, b)
+
+    keys = [jax.random.fold_in(jax.random.PRNGKey(14), i) for i in range(3)]
+    reals = [_real(40 + i) for i in range(3)]
+    ref = _run_reference(ref_params, "randk25", keys, reals)
+    cfg = wgan.GANConfig(exchange=train_gan.arm_exchange("randk25"))
+    opt_cfg = opt.OptimizerConfig(name="extra_adam", lr=cfg.lr, grad_clip=0.0)
+    params = _port_params(ref_params)
+    state = opt.init_state(opt_cfg, params)
+    step = wgan.make_step(cfg, opt_cfg)
+    for key, real in zip(keys, reals):
+        rng_draws, _ = _step_draws(key)
+        k1, k2, k3, k4 = jax.random.split(key, 4)
+        rng = ReplayNoise(rng_draws)
+        noise = ReplayNoise(_randk_draws(k2, ref_params) + _randk_draws(k4, ref_params))
+        params, state = step(params, state, torch.from_numpy(real), rng, noise)
+        assert rng.remaining == 0 and noise.remaining == 0
+    for a, b in zip(_port_leaves(params), ref):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
+    per_leaf = sum(8 * max(1, round(0.25 * a.size)) for a in _leaves(ref_params))
+    assert wgan.grad_bytes(_port_params(ref_params), tex) == per_leaf == \
+        jgan.grad_bytes(jax.tree_util.tree_map(jnp.asarray, ref_params), jex)
 
 
 def test_train_gan_cli_on_cpu(capsys):
     out = train_gan.main(["--device", "cpu", "--steps", "3"])
-    assert sorted(out) == sorted(train_gan.PORTED_ARMS)
+    assert sorted(out) == sorted(train_gan.ARMS)
     for res in out.values():
         assert math.isfinite(res["energy_distance"])
     assert out["uq8"]["bytes_per_step_per_worker"] == 2 * (19 * 512 + 4 * 19)
