@@ -88,6 +88,16 @@ imports only ``repro_torch`` (from ``src/`` beside this file) and:
       the exchanged mean equal to the gradient bit for bit (and the EF
       memory too), and the top-k selection and the support draw timed
       alone at the full buffer (``sparse_path``);
+   g. fault tolerance at the same width (qgenx ``de``, int8 two_phase):
+      4 guarded fault-free steps bitwise equal to the same 4 unguarded
+      (params after every step; both under deterministic algorithms), then
+      6 steps under ``--guard --rollback-after 2 --fault-spec
+      "nan_grad@1;wire_corrupt@3-4"`` (steps 1, 3 and 4 rejected, the whole
+      state after each bitwise equal to the last good state, one rollback
+      to the step-3 snapshot, step 5 finite, kernels 1-3 on the poisoned
+      buffer), then 3 guarded ``ef21-topk`` steps with ``nan_grad@1`` (the
+      error memory restored bitwise); step times, peaks and the watchdog
+      snapshot's bytes and seconds printed (``guard_path``);
    b. the WGAN-GP testbed (``repro_torch.launch.train_gan.run``, the
       paper's Section 5 at the reference's width: K = 3 workers, batch
       256 each, hidden 64) for 300 ExtraAdam steps in each of the fp32,
@@ -132,8 +142,9 @@ imports only ``repro_torch`` (from ``src/`` beside this file) and:
    1e-6), and each kernel is timed beside its bound and its plain
    version.  Kernels 1 and 5 have a row per variant and shape.
 
-The line before the last is ``{"kernels": [...]}``, the last
-``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
+The card's line is printed again before the results; the line before
+the last is ``{"kernels": [...]}``, the last ``{"ok": true, "device":
+{...}}``.  Any failure exits non-zero before
 either is printed.
 """
 
@@ -1122,8 +1133,8 @@ def qada_path(torch, batch: int, seq: int, shapes: list, fixed: dict) -> dict:
             return out
         return wrapper
 
-    def recording_advance(self, state, local_hist=None):
-        out = advance(self, state, local_hist)
+    def recording_advance(self, state, *args, **kw):
+        out = advance(self, state, *args, **kw)
         states.append(out)
         return out
 
@@ -1241,6 +1252,7 @@ def sparse_path(torch, batch: int, seq: int, shapes: list, fixed: dict) -> dict:
     n = sum(size_of(s) for s in shapes)
     k = max(1, round(SPARSE_FRAC * n))
     counts_all = {name: 0 for name in cuda.KERNELS}
+    peaks = {}
     for comp, frac, tag in SPARSE_RUNS:
         args = _train_args(arch="tinyllama-1.1b", dtype="bfloat16", batch=batch, seq=seq,
                            device="cuda", optimizer="qgenx", method="de", compressor=comp,
@@ -1254,6 +1266,7 @@ def sparse_path(torch, batch: int, seq: int, shapes: list, fixed: dict) -> dict:
         trace = xmod.wire_trace_stop()
         counts = cuda.launch_counts()
         peak = torch.cuda.max_memory_allocated()
+        peaks[comp] = peak
         err = out.pop("ex_state").error
         want_wire = 2 * 8.0 * k
         if out["wire_bytes"] != [want_wire] * SPARSE_STEPS:
@@ -1319,7 +1332,215 @@ def sparse_path(torch, batch: int, seq: int, shapes: list, fixed: dict) -> dict:
     del x
     log(f"phase 4f: at the full buffer ({n} coordinates, k = {k}): top-k selection "
         f"{topk_ms} ms, support draw {draw_ms} ms")
-    return counts_all
+    return counts_all, peaks
+
+
+# ---------------------------------------------------------------------------
+# phase 4g: fault tolerance on the train path (the guard, faults, rollback)
+# ---------------------------------------------------------------------------
+
+
+GUARD_STEPS, FAULT_STEPS, EF_GUARD_STEPS = 4, 6, 3
+FAULT_SPEC = "nan_grad@1;wire_corrupt@3-4"
+EF_GUARD_SPEC = "nan_grad@1"
+EXCHANGE_KERNELS = ("quantize_blocks", "dequant_reduce_requantize_blocks", "dequantize_blocks")
+
+
+def _host_state(model, opt_state, ex_state) -> dict:
+    """Every leaf of the run's state (the checkpoint's trees: params,
+    optimizer and exchange state, their counters included) copied whole to
+    the host, by path."""
+    from repro_torch.checkpoint import checkpointing
+    from repro_torch.launch.train import state_trees
+
+    leaves = checkpointing._flatten_with_paths(state_trees(model, opt_state, ex_state))
+    return {k: (v.detach().to("cpu", copy=True) if hasattr(v, "detach") else v)
+            for k, v in leaves.items()}
+
+
+def _same_state(torch, got: dict, want: dict) -> list:
+    """The paths whose leaves differ (bitwise, whole tensors)."""
+    if sorted(got) != sorted(want):
+        return ["<paths>"]
+    return [k for k in want if not (
+        torch.equal(got[k], want[k]) and got[k].dtype == want[k].dtype
+        if torch.is_tensor(want[k]) else got[k] == want[k])]
+
+
+def _guarded_run(torch, tag, args, on_step=None):
+    """``run(args)`` with the launch counts and the peak reset just before
+    and read just after: (run()'s output, counts, peak bytes)."""
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.train import run
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launch_counts()
+    out = run(args, log=lambda m: log(f"  {tag}: {m}"), on_step=on_step)
+    counts = cuda.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not out["step_s"]:
+        fail(f"phase 4g {tag}: no step ran")
+    return out, counts, peak
+
+
+def guard_path(torch, batch: int, seq: int, fixed: dict, ef_peak: int) -> dict:
+    """Phase 4g: the fault-tolerance layer on tinyllama-1.1b at full width
+    (bf16 layers, K = 1, qgenx ``de``, int8 two_phase, host noise), through
+    ``run()``:
+
+    (a) 4 steps with ``--guard`` and no fault, and the same 4 steps
+        unguarded from the same start: the params after every step
+        bitwise equal (both runs under ``torch.use_deterministic_algorithms``,
+        so the embedding's backward sums in one order); both runs' step
+        times and peaks printed;
+    (b) ``--guard --rollback-after 2 --fault-spec "nan_grad@1;wire_corrupt@3-4"``
+        for 6 steps: step 1 rejected with ``nonfinite`` 1 after kernels 1-3
+        ran on the NaN-poisoned buffer, the whole state after it bitwise
+        equal to the state before it; steps 3 and 4 rejected and the
+        watchdog's rollback after step 4 restoring the step-3 snapshot
+        bitwise; step 5 committing a finite loss; the summary
+        ``nonfinite_steps=3 rejected=3 rollbacks=1``; kernels 1-3 twice a
+        step; the snapshot's bytes and seconds per good step, the
+        rollback's seconds and the peak printed;
+    (c) 3 guarded ``de`` steps under ``--compressor ef21-topk
+        --ef-topk-frac 0.25`` with ``nan_grad@1``: the ``[1, n]`` error
+        memory after step 1 bitwise equal to its value before it, and the
+        peak printed beside phase 4f's (``ef_peak``).
+
+    Returns the launch counts of (a) and (b)."""
+    from repro_torch.core import faults
+    from repro_torch.kernels import cuda
+
+    base = dict(arch="tinyllama-1.1b", dtype="bfloat16", batch=batch, seq=seq, device="cuda",
+                optimizer="qgenx", method="de", compression="int8",
+                compress_mode="two_phase")
+    total = {k: 0 for k in cuda.KERNELS}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] += n
+
+    # (a) the guard adds no arithmetic
+    plain_params = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        plain, counts, plain_peak = _guarded_run(
+            torch, "4g(a) unguarded", _train_args(steps=GUARD_STEPS, **base),
+            on_step=lambda t, model, o, e, m: plain_params.append(
+                [p.detach().to("cpu", copy=True) for p in model.param_leaves()]))
+        add(counts)
+        diverged, costs = [], {}
+
+        def same_params(t, model, o, e, m):
+            if not all(torch.equal(p.detach().cpu(), q)
+                       for p, q in zip(model.param_leaves(), plain_params[t])):
+                diverged.append(t)
+            if t == GUARD_STEPS - 1:  # the guard's two passes alone, on this state
+                params = model.param_leaves()
+                for _ in range(2):  # the second of each kept
+                    ok, costs["finite_ms"] = _synced_ms(torch, lambda: bool(
+                        faults.tree_all_finite(m["loss"], params, o, e)))
+                    copy, costs["copy_ms"] = _synced_ms(
+                        torch, lambda: [p.detach().clone() for p in params])
+                    del copy
+                if not ok:
+                    fail("phase 4g(a): tree_all_finite rejects a finite state")
+
+        guarded, counts, guarded_peak = _guarded_run(
+            torch, "4g(a) guarded", _train_args(steps=GUARD_STEPS, guard=True, **base),
+            on_step=same_params)
+        add(counts)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del plain_params
+    if diverged or guarded["loss"] != plain["loss"]:
+        fail(f"phase 4g(a): the guarded params differ from the unguarded ones after steps "
+             f"{diverged} (losses {guarded['loss']} vs {plain['loss']})")
+    if any(guarded["rejected"]) or guarded["guard"] != {"nonfinite_steps": 0, "rejected": 0,
+                                                         "rollbacks": 0}:
+        fail(f"phase 4g(a): a fault-free guarded run rejected steps: {guarded['guard']}")
+    log(f"  phase 4g(a): {GUARD_STEPS} guarded steps bitwise equal to the unguarded ones; "
+        f"step_s guarded {guarded['step_s']} vs unguarded {plain['step_s']}; peak "
+        f"{guarded_peak} vs {plain_peak} bytes ({(guarded_peak - plain_peak) / 1e9:+.3f} GB); "
+        f"snapshots {[(s['bytes'], round(s['seconds'], 3)) for s in guarded['snapshots']]}; "
+        f"alone on the step-{GUARD_STEPS - 1} state: the finiteness pass "
+        f"{costs['finite_ms']:.2f} ms, the params copy {costs['copy_ms']:.2f} ms")
+
+    # (b) rejection and rollback
+    held, bad = {}, []
+
+    def check(t, model, o, e, m):
+        torch.cuda.synchronize()  # a kernel fault on the poisoned buffer surfaces here
+        if t in (1, 3, 4):
+            diff = _same_state(torch, _host_state(model, o, e), held["state"])
+            if diff or not m["rejected"] or not m["nonfinite"]:
+                bad.append((t, m["rejected"], m["nonfinite"], diff[:4]))
+        elif m["rejected"] or m["nonfinite"]:
+            bad.append((t, m["rejected"], m["nonfinite"]))
+        elif t in (0, 2):  # the state steps 1, 3 and 4 must carry
+            held["state"] = None
+            gc.collect()
+            held["state"] = _host_state(model, o, e)
+
+    out, counts, peak = _guarded_run(
+        torch, "4g(b)", _train_args(steps=FAULT_STEPS, guard=True, rollback_after=2,
+                                    fault_spec=FAULT_SPEC, **base), on_step=check)
+    add(counts)
+    del held["state"]
+    if bad:
+        fail(f"phase 4g(b): steps whose verdict or carried state is wrong: {bad}")
+    want_counts = {k: (2 * FAULT_STEPS if k in EXCHANGE_KERNELS else 0) for k in cuda.KERNELS}
+    if counts != want_counts:
+        fail(f"phase 4g(b) launches {counts} != {want_counts}")
+    if out["guard"] != {"nonfinite_steps": 3, "rejected": 3, "rollbacks": 1} or [
+            (r["step"], r["to_step"]) for r in out["rollbacks"]] != [(4, 3)]:
+        fail(f"phase 4g(b): guard {out['guard']}, rollbacks {out['rollbacks']}")
+    if out["rejected"] != [0.0, 1.0, 0.0, 1.0, 1.0, 0.0] or not math.isfinite(out["loss"][5]):
+        fail(f"phase 4g(b): rejected {out['rejected']}, losses {out['loss']}")
+    snaps = out["snapshots"]
+    log(f"  phase 4g(b): rejected {out['rejected']} nonfinite {out['nonfinite']} "
+        f"loss {out['loss']} step_s {out['step_s']} wire_bytes {out['wire_bytes']} "
+        f"coded_bits_est {out['coded_bits_est']} peak {peak} bytes launches {counts}")
+    log(f"phase 4g(b): nonfinite_steps=3 rejected=3 rollbacks=1; the state after each "
+        f"rejected step and after the rollback bitwise equal to the last good one; "
+        f"snapshot {snaps[0]['bytes']} bytes, "
+        f"{[round(s['seconds'], 3) for s in snaps]} s at the good steps "
+        f"{[s['step'] - 1 for s in snaps]}; rollback {out['rollbacks'][0]['seconds']:.3f} s; "
+        f"peak {peak} bytes (4a int8: {fixed['peak_bytes']})")
+
+    # (c) the error-feedback memory under the guard
+    err_before = {}
+
+    def check_error(t, model, o, e, m):
+        if t == 0:
+            err_before["error"] = e.error.detach().to("cpu", copy=True)
+        elif t == 1:
+            same = bool(m["rejected"]) and torch.equal(e.error.detach().cpu(),
+                                                       err_before["error"])
+            err_before["ok"] = same
+            del err_before["error"]
+
+    ef, counts, ef_guard_peak = _guarded_run(
+        torch, "4g(c)", _train_args(arch="tinyllama-1.1b", dtype="bfloat16", batch=batch,
+                                    seq=seq, device="cuda", optimizer="qgenx", method="de",
+                                    compressor="ef21-topk", ef_topk_frac=SPARSE_FRAC,
+                                    steps=EF_GUARD_STEPS, guard=True,
+                                    fault_spec=EF_GUARD_SPEC), on_step=check_error)
+    err = ef.pop("ex_state").error
+    if not err_before.get("ok") or ef["rejected"] != [0.0, 1.0, 0.0] or any(counts.values()):
+        fail(f"phase 4g(c): error memory restored {err_before.get('ok')}, rejected "
+             f"{ef['rejected']}, launches {counts}")
+    log(f"phase 4g(c): ef21-topk de, nan_grad@1: the {tuple(err.shape)} error memory "
+        f"({err.numel() * 4} bytes) after the rejected step bitwise equal to its value "
+        f"before it; step_s {ef['step_s']}; peak {ef_guard_peak} bytes (phase 4f unguarded: "
+        f"{ef_peak}, {(ef_guard_peak - ef_peak) / 1e9:+.3f} GB)")
+    del err, ef
+    return {"counts": total, "finite_ms": costs["finite_ms"], "copy_ms": costs["copy_ms"],
+            "guarded_step_s": guarded["step_s"],
+            "plain_step_s": plain["step_s"], "guarded_peak": guarded_peak,
+            "plain_peak": plain_peak, "fault_peak": peak, "ef_peak": ef_guard_peak}
 
 
 def _offsets(tree) -> list:
@@ -2026,7 +2247,8 @@ def main() -> None:
                          timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2083,9 +2305,20 @@ def main() -> None:
 
     # phase 4f: the sparse compressors (ef21-topk, randk) at full width
     t0 = time.perf_counter()
-    for k, n in sparse_path(torch, args.batch, args.seq, shapes, by_run["int8"]).items():
+    sparse_counts, sparse_peaks = sparse_path(torch, args.batch, args.seq, shapes,
+                                              by_run["int8"])
+    for k, n in sparse_counts.items():
         launches[k] += n
     log(f"phase 4f took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 4g: the step guard, fault injection and the watchdog's rollback, at full width
+    t0 = time.perf_counter()
+    guard = guard_path(torch, args.batch, args.seq, by_run["int8"], sparse_peaks["ef21-topk"])
+    for k, n in guard["counts"].items():
+        launches[k] += n
+    log(f"phase 4g took {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2108,6 +2341,7 @@ def main() -> None:
     rows = kernel_times(torch, launches, errs, shapes, int_ops, qada) + gan_rows + [toy_row]
     log(f"phase 5 took {time.perf_counter() - t0:.1f} s")
 
+    print(card, flush=True)  # again, beside the results (a log's tail keeps it)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -52,12 +52,12 @@ and billed at ``4 * qada_bins`` bytes a call); the call that completes a
 period of ``level_update_every`` calls solves new level tables from it on
 the host and zeroes it.  ``ExchangeState.step`` is a host int, so the
 refresh is a host branch and the solve is paid on refresh calls only.
-A non-finite histogram or a solved table that fails
-:func:`~repro_torch.core.quantization.validate_levels` raises
-``ValueError``; the old table is never kept in its place.  The flat
-per-vector ``compress`` / ``compress_with_levels`` (the toy-VI loop's
-estimate) is ``compress_tree`` of one tensor, and ``qada_propose`` one
-refresh from the caller's vectors.
+A non-finite histogram (outside the train step's guard) or a solved
+table that fails :func:`~repro_torch.core.quantization.validate_levels`
+raises ``ValueError``; the old table is never silently kept in its
+place.  The flat per-vector ``compress`` / ``compress_with_levels`` (the
+toy-VI loop's estimate) is ``compress_tree`` of one tensor, and
+``qada_propose`` one refresh from the caller's vectors.
 
 The sparse compressors send k coordinates a worker: ``randk`` (unbiased:
 a uniform k-subset from the noise source's ``subset`` draw, values
@@ -74,11 +74,24 @@ reference computes them outside any Pallas kernel too.  The registry
 (:func:`get_compressor`, :func:`registered_compressors`) declares each
 compressor's contract tier.
 
+Partial participation: ``Exchange.pmean_tree(..., mask=m)`` takes this
+worker's liveness, an f32 scalar (1.0 alive, 0.0 dropped).  A dropped
+worker's leaves are zeroed with ``where`` (not a multiply, so its NaN
+vanishes too) before they enter the exchange, which runs as before
+(every worker still takes part in the collectives), and the mean is
+rescaled by ``K / alive`` (alive = the all-reduced mask, clamped at 1):
+the mean over the alive set.  With an all-ones mask the factor is exactly
+1.0 and the mean is bit-equal to the unmasked one.  A dropped worker's
+QAda histogram is zeroed with ``where`` before the merge.  The
+contractive tier refuses a mask (its memory would go stale).  With
+``guarded=True`` (the train step's guard) a QAda refresh from a
+non-finite histogram keeps the old tables and leaves that histogram in
+the new state, for the caller's finiteness check to reject, instead of
+raising.
+
 Not ported: mode ``leafwise``, bucketed overlap and the unplanned layout
 (``use_plan``), rejected by :class:`ExchangeConfig` (an unported value
-raises ``ValueError``, an unported field ``TypeError``); the
-partial-participation masks and the fault options, which no function of
-the port takes.
+raises ``ValueError``, an unported field ``TypeError``).
 """
 
 from __future__ import annotations
@@ -419,8 +432,13 @@ def theorem2_bits_traced(pmf: torch.Tensor, d: int, num_buckets: int) -> torch.T
     in f32 as the reference's traced twin computes it)::
 
         C_b * num_buckets + (1 - p0) * d + (H(L) + 1) * d
+
+    A NaN mass (a buffer with a non-finite coordinate) makes the estimate
+    NaN, as in the reference: it puts a NaN coordinate in symbol 0 (``1 -
+    p0``), :func:`_bracket_select` in the top symbols, so every NaN symbol
+    enters the entropy here.
     """
-    nz = pmf > 0
+    nz = ~(pmf <= 0)  # positive, or NaN
     h = -torch.sum(torch.where(nz, pmf * torch.log2(torch.where(nz, pmf, 1.0)), 0.0))
     f32 = dict(dtype=torch.float32, device=pmf.device)
     d_t = torch.tensor(d, **f32)
@@ -949,6 +967,34 @@ def _qada_solve(levels: torch.Tensor, hist: torch.Tensor, cfg: ExchangeConfig) -
 
 
 # ---------------------------------------------------------------------------
+# Partial participation (liveness masking)
+# ---------------------------------------------------------------------------
+
+
+def _mask_tree(leaves: list, mask: torch.Tensor) -> list:
+    """Zero every leaf of a dead worker (mask == 0) with ``where``, not a
+    multiply, so a dropped worker's NaN (NaN * 0 is NaN) vanishes from the
+    aggregate; ``where(1 > 0, g, 0)`` is ``g`` bit for bit."""
+    return [torch.where(mask > 0, g, torch.zeros((), dtype=g.dtype, device=g.device))
+            for g in leaves]
+
+
+def _alive_renorm(mask: torch.Tensor, comm) -> tuple:
+    """(renorm, alive): every mean is a sum / K, so the mean over the alive
+    set is that times K / alive.  ``alive`` (one all-reduce of the mask)
+    is clamped at 1, so an all-dead exchange gives zeros, not NaN (the
+    step guard owns rejecting it).  Under an all-ones mask alive == K
+    exactly and renorm is exactly 1.0."""
+    alive = torch.clamp(comm.all_reduce_sum(mask.float()), min=1.0)
+    return torch.full((), float(comm.size), dtype=torch.float32,
+                      device=alive.device) / alive, alive
+
+
+def _renorm_tree(leaves: list, renorm: torch.Tensor) -> list:
+    return [(m.float() * renorm).to(m.dtype) for m in leaves]
+
+
+# ---------------------------------------------------------------------------
 # The Exchange object
 # ---------------------------------------------------------------------------
 
@@ -1006,18 +1052,24 @@ class Exchange:
             hist = h if hist is None else hist + h
         return hist
 
-    def _advance(self, state: ExchangeState, local_hist=None) -> ExchangeState:
+    def _advance(self, state: ExchangeState, local_hist=None,
+                 guarded: bool = False) -> ExchangeState:
         """Bump the call counter; with QAda statistics, merge them over the
         workers (one all-reduce, recorded as ``qada_hist``) and, on the
         call that completes a period, refresh every table the compressor
-        carries from the merged histogram and zero it."""
+        carries from the merged histogram and zero it.  ``guarded``: a
+        non-finite merged histogram skips the refresh and stays in the
+        state (the caller's guard rejects it) instead of raising."""
         if local_hist is None:
             return dataclasses.replace(state, step=state.step + 1)
         record_wire("qada_hist", local_hist)
         hist = state.hist + self.comm.all_reduce_sum(local_hist)
         levels, levels_lo = state.levels, state.levels_lo
         every = self.cfg.level_update_every
-        if state.step % every == every - 1:
+        refresh = state.step % every == every - 1
+        if refresh and guarded:
+            refresh = bool(torch.isfinite(hist).all())
+        if refresh:
             levels, levels_lo = self.compressor.refresh_tables(levels, levels_lo, hist,
                                                                self.cfg)
             hist = torch.zeros_like(hist)
@@ -1051,21 +1103,53 @@ class Exchange:
                       purpose: str = "pmean") -> xplan.ExchangePlan:
         return self.plan_for(tree_flatten(tree)[0], purpose, axis_size)
 
-    def pmean_tree(self, tree, state: ExchangeState, noise):
+    def pmean_tree(self, tree, state: ExchangeState, noise,
+                   mask: Optional[torch.Tensor] = None, guarded: bool = False):
         """Mean of a gradient pytree (flattened in JAX order) over the
         workers: none reduces leaf by leaf; qgenx packs the leaves through
         the plan into one buffer and exchanges it; layerwise exchanges each
         segment of that buffer; randk and the contractive tier exchange k
         coordinates of the packed buffer, the latter threading (and
-        updating in place) ``state.error``."""
+        updating in place) ``state.error``.
+
+        ``mask`` (this worker's f32 liveness scalar, or None) excludes a
+        dropped worker and renormalizes the mean over the alive set;
+        ``guarded`` lets a QAda refresh meet a non-finite histogram without
+        raising (see the module docstring)."""
         leaves, spec = tree_flatten(tree)
         if self.compressor.has_error:
+            self._reject_mask(mask)
             out, err = self.compressor.pmean_tree_ef(leaves, self, state, noise)
             return tree_unflatten(spec, out), dataclasses.replace(self._advance(state),
                                                                   error=err)
+        if mask is not None:
+            leaves = _mask_tree(leaves, mask)
         out = self.compressor.pmean_leaves(leaves, self, state, noise)
         hist = self._tree_hist(leaves) if self._qada_active() else None
-        return tree_unflatten(spec, out), self._advance(state, hist)
+        out, state = self._finish(out, state, hist, mask, guarded)
+        return tree_unflatten(spec, out), state
+
+    def _reject_mask(self, mask) -> None:
+        """Error feedback with partial participation is undefined: a dead
+        worker's memory would go stale while the alive-set renorm rescales
+        its stored innovations."""
+        if mask is not None:
+            raise ValueError(
+                f"compressor {self.cfg.compressor!r} (contractive "
+                "contract) does not support partial-participation masks; "
+                "run error-feedback exchanges with full participation"
+            )
+
+    def _finish(self, leaves, state: ExchangeState, hist, mask, guarded: bool):
+        """The masked epilogue: renormalize the mean over the alive set and
+        keep a dead worker's statistics out of the QAda merge (``where``,
+        not a multiply: they may be NaN, which may be why it dropped)."""
+        if mask is not None:
+            renorm, _ = _alive_renorm(mask, self.comm)
+            leaves = _renorm_tree(leaves, renorm)
+            if hist is not None:
+                hist = torch.where(mask > 0, hist, torch.zeros_like(hist))
+        return leaves, self._advance(state, hist, guarded)
 
     def compress_tree(self, tree, noise, levels: Optional[torch.Tensor] = None,
                       workers: bool = False):

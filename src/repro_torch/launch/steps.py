@@ -53,18 +53,54 @@ collective-operand bytes of the exchanges that ran, the QAda histogram's
 broadcasts: ``Exchange.coded_bits_tree`` of the exchanged mean under the
 pre-step level table (before any QAda refresh of this step), times the gradient exchanges that ran; the
 re-centering exchange is not counted; 0 on steps that do not sync and for
-every compressor but qgenx).  The guard and fault schedules are not
-ported: ``make_train_step`` has no parameter for them.  The device-PRNG
-exchange needs no parameter here either: it comes in with the exchange,
+every compressor but qgenx).  The device-PRNG exchange needs no
+parameter here: it comes in with the exchange,
 ``make_exchange(ExchangeConfig(..., use_device_prng=True))``, and the
 step's ``noise`` source is then asked for seeds instead of arrays.
+
+The non-finite step guard (``guard=True``): the candidate step is
+computed in full, one finiteness flag over (the mean loss, the new
+params, the new optimizer state, the new exchange state) is taken per
+worker (:func:`repro_torch.core.faults.tree_all_finite`) and all-reduced,
+and when any alive worker saw a non-finite value the step is rejected:
+everything is left exactly as it was before the step.  The params and
+the contractive tier's ``ex_state.error`` are written in place, so a
+guarded step keeps a device copy of the starting params (2 bytes a bf16
+coordinate) and, on a step that exchanges under ``ef21-topk`` /
+``ef-randk``, of the error memory (4 bytes a coordinate), and writes them
+back on a rejection; the optimizer state and the rest of ``ex_state`` are
+new objects each step, so the step returns the ones it was given (their
+counters included: a rejected step advances neither ``sync_every``
+gating, the QAda cadence nor ``prev_half``).  The verdict is one
+device-to-host fetch a step.  Under the guard a QAda refresh from a
+non-finite histogram does not raise: the exchange leaves that histogram
+in the candidate state, which the guard then rejects.  Metrics gain
+``rejected`` (1.0 = this step was rejected), ``nonfinite`` (1.0 = any
+worker, alive or dropped, produced a non-finite candidate) and
+``alive`` (the workers in the aggregate); a non-finite
+``coded_bits_est`` is reported as 0, and ``wire_bytes`` is kept (the
+candidate's exchanges moved those bytes).  ``guard=False`` adds nothing.
+
+A fault schedule (``fault_spec``, a
+:class:`repro_torch.core.faults.FaultSpec` with device events) makes the
+step take ``fault_step``, the train loop's step: every local gradient
+goes through ``poison_grads``, every exchanged gradient mean through
+``corrupt_mean``, and with ``drop`` events every exchange of the step
+(the re-centering one included) takes this worker's liveness mask; the
+exchange then renormalizes over the alive set and ``wire_bytes`` is
+scaled by alive / K.  A spec with no events of a kind changes nothing of
+the step's arithmetic for that kind.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import faults as faults_mod
 from repro_torch.core.exchange import Exchange, record_wire
 from repro_torch.core.extragradient import adaptive_gamma
 from repro_torch.core.methods import commit_params, get_method
@@ -93,14 +129,19 @@ def _assign(params: list, values: list) -> None:
         p.copy_(v)
 
 
-def make_train_step(model, opt_cfg: OptimizerConfig, exchange: Exchange):
-    """Returns ``step(opt_state, ex_state, batch, noise) -> (opt_state,
-    ex_state, metrics)`` for this worker's ``batch`` shard; ``noise`` is
-    this worker's noise source (:mod:`repro_torch.core.noise`)."""
+def make_train_step(model, opt_cfg: OptimizerConfig, exchange: Exchange, *,
+                    guard: bool = False,
+                    fault_spec: Optional[faults_mod.FaultSpec] = None):
+    """Returns ``step(opt_state, ex_state, batch, noise, fault_step=None)
+    -> (opt_state, ex_state, metrics)`` for this worker's ``batch`` shard;
+    ``noise`` is this worker's noise source (:mod:`repro_torch.core.noise`);
+    ``fault_step`` (the train loop's step, a host int) is required when
+    ``fault_spec`` has device events."""
     method = get_method(opt_cfg.method)
     if opt_cfg.name == "qgenx" and method.name not in ("de", "optda"):
         raise ValueError(f"make_train_step supports qgenx methods 'de'/'optda', "
                          f"got {opt_cfg.method!r}")
+    needs_fault_step = fault_spec is not None and fault_spec.has_device_events
     loss_fn = make_loss_fn(model)
     params = model.param_leaves()
     comm = exchange.comm
@@ -113,16 +154,17 @@ def make_train_step(model, opt_cfg: OptimizerConfig, exchange: Exchange):
     # exchanged estimates instead (the reference's rule)
     contractive = exchange.compressor.has_error
 
-    def grad_at(batch):
+    def grad_at(batch, fault_step):
         loss = loss_fn(batch)
-        grads = torch.autograd.grad(loss, params)
-        return loss.detach(), list(grads)
+        grads = list(torch.autograd.grad(loss, params))
+        if needs_fault_step:
+            grads = fault_spec.poison_grads(grads, fault_step, comm.rank)
+        return loss.detach(), grads
 
-    def adam_family_step(opt_state, ex_state, batch, exchange_grads):
+    def adam_family_step(opt_state, ex_state, grads, exchange_grads, start):
         name = opt_cfg.name
-        start = None
         if name == "extra_adam":
-            _, g1 = grad_at(batch)
+            _, g1 = grads()
             g1, ex_state = exchange_grads(g1, ex_state)
             half = opt.extrapolate(opt_cfg, params, opt_state, g1)
             del g1
@@ -130,31 +172,32 @@ def make_train_step(model, opt_cfg: OptimizerConfig, exchange: Exchange):
             half = opt.extrapolate(opt_cfg, params, opt_state, opt_state.prev_half_grad)
         if name != "adam":
             # the commit steps from the starting params, not params_half
-            start = [p.detach().clone() for p in params]
+            if start is None:
+                start = [p.detach().clone() for p in params]
             _assign(params, half)
             del half
-        loss, g2 = grad_at(batch)
+        loss, g2 = grads()
         g2, ex_state = exchange_grads(g2, ex_state)
         new_params, opt_state = opt.commit(opt_cfg, start if start is not None else params,
                                            opt_state, g2)
         _assign(params, new_params)
         return loss, g2, opt_state, ex_state
 
-    def qgenx_step(opt_state, ex_state, batch, exchange_grads):
+    def qgenx_step(opt_state, ex_state, grads, exchange_grads, start):
         if method.uses_prev_half:
             ghat1 = opt_state.prev_half
             _assign(params, qgenx_opt.extrapolate(opt_cfg, params, opt_state, ghat1, K))
-            loss, g2 = grad_at(batch)
+            loss, g2 = grads()
             ghat2, ex_state = exchange_grads(g2, ex_state)
             sq = qgenx_opt.local_sq_diff(ghat1, ghat2 if contractive else g2)
             prev_half = ghat2
         else:
-            _, g1 = grad_at(batch)
+            _, g1 = grads()
             ghat1, ex_state = exchange_grads(g1, ex_state)
             _assign(params, qgenx_opt.extrapolate(opt_cfg, params, opt_state, ghat1, K))
             first = ghat1 if contractive else g1  # the half of the pair sq needs
             del g1, ghat1
-            loss, g2 = grad_at(batch)
+            loss, g2 = grads()
             ghat2, ex_state = exchange_grads(g2, ex_state)
             sq = qgenx_opt.local_sq_diff(first, ghat2 if contractive else g2)
             del first
@@ -169,15 +212,17 @@ def make_train_step(model, opt_cfg: OptimizerConfig, exchange: Exchange):
     body = qgenx_step if opt_cfg.name == "qgenx" else adam_family_step
 
     @torch.no_grad()
-    def recenter(opt_state, ex_state, noise):
+    def recenter(opt_state, ex_state, noise, mask):
         """One exchange of the iterates: qgenx's dual accumulator Y (then
         X = anchor + gamma Y), the adam family's params."""
         if opt_cfg.name == "qgenx":
-            y_bar, ex_state = exchange.pmean_tree(opt_state.y, ex_state, noise)
+            y_bar, ex_state = exchange.pmean_tree(opt_state.y, ex_state, noise, mask=mask,
+                                                  guarded=guard)
             gamma = adaptive_gamma(opt_state.sum_sq, K, opt_cfg.gamma_scale)
             _assign(params, commit_params(opt_state.anchor, y_bar, gamma, like=params))
             return opt_state._replace(y=y_bar), ex_state
-        p_bar, ex_state = exchange.pmean_tree(params, ex_state, noise)
+        p_bar, ex_state = exchange.pmean_tree(params, ex_state, noise, mask=mask,
+                                              guarded=guard)
         _assign(params, p_bar)
         return opt_state, ex_state
 
@@ -199,16 +244,33 @@ def make_train_step(model, opt_cfg: OptimizerConfig, exchange: Exchange):
         mean = comm.all_reduce_mean(x)
         return torch.sqrt(comm.all_reduce_mean(torch.mean((x - mean) ** 2)))
 
-    def step(opt_state, ex_state, batch, noise):
-        st_in = ex_state
+    def step(opt_state, ex_state, batch, noise, fault_step: Optional[int] = None):
+        if needs_fault_step and fault_step is None:
+            raise TypeError("this step's fault schedule has device events: pass "
+                            "fault_step (the train loop's step)")
+        opt_in, st_in = opt_state, ex_state
         count = opt_state.count
         is_sync = count % cfg.sync_every == cfg.sync_every - 1
         start_probe = probe() if is_sync and cfg.sync_every > 1 else None
-        if is_sync:
-            exchange_grads = lambda g, st: exchange.pmean_tree(g, st, noise)  # noqa: E731
-        else:
-            exchange_grads = lambda g, st: (g, st)  # noqa: E731
-        loss, g2, opt_state, ex_state = body(opt_state, ex_state, batch, exchange_grads)
+        mask = (fault_spec.liveness(fault_step, comm.rank, params[0].device)
+                if needs_fault_step else None)
+        # the guard's copies of what the step writes in place
+        start = err_in = None
+        if guard:
+            start = [p.detach().clone() for p in params]
+            if contractive and is_sync:
+                err_in = ex_state.error.clone()
+
+        def exchange_mean(g, st):
+            m, st = exchange.pmean_tree(g, st, noise, mask=mask, guarded=guard)
+            if needs_fault_step:
+                m = fault_spec.corrupt_mean(m, fault_step)
+            return m, st
+
+        exchange_grads = exchange_mean if is_sync else (lambda g, st: (g, st))
+        loss, g2, opt_state, ex_state = body(opt_state, ex_state,
+                                             lambda: grad_at(batch, fault_step),
+                                             exchange_grads, start)
         # the gradient's metrics first, so the mean is freed before the
         # re-centering exchange allocates its own buffers
         per_call = exchange.wire_bytes_tree(g2, K)
@@ -217,14 +279,40 @@ def make_train_step(model, opt_cfg: OptimizerConfig, exchange: Exchange):
             coded = exchange.coded_bits_tree(g2, st_in) * (ex_state.step - st_in.step)
         del g2
         if cfg.recenter_every and count % cfg.recenter_every == cfg.recenter_every - 1:
-            opt_state, ex_state = recenter(opt_state, ex_state, noise)
+            opt_state, ex_state = recenter(opt_state, ex_state, noise, mask)
         loss = comm.all_reduce_mean(loss)
         wire = per_call * (ex_state.step - st_in.step)
+        alive = float(K)
+        rejected = nonfinite = 0.0
+        if guard or mask is not None:
+            # one all-reduce and one fetch: [alive, any bad, any alive bad]
+            flags = [mask if mask is not None else torch.ones((), device=loss.device)]
+            if guard:
+                bad = (~faults_mod.tree_all_finite(loss, params, opt_state,
+                                                   ex_state)).float()
+                flags += [bad, bad * mask if mask is not None else bad]
+            got = comm.all_reduce_sum(torch.stack(flags)).tolist()
+            if mask is not None:
+                # only alive workers transmit: the fleet's bill is alive / K
+                alive = got[0]
+                wire = wire * (alive / K)
+            if guard:
+                nonfinite = float(got[1] > 0)
+                rejected = float(got[2] > 0)
         drift = 0.0
         if start_probe is not None:
             drift = param_drift(start_probe)
             wire += probe_bytes
+        if guard:
+            if torch.is_tensor(coded):
+                coded = torch.where(torch.isfinite(coded), coded, 0.0)
+            if rejected:
+                _assign(params, start)
+                opt_state = opt_in
+                ex_state = st_in if err_in is None else dataclasses.replace(st_in,
+                                                                            error=err_in)
         return opt_state, ex_state, {"loss": loss, "wire_bytes": wire, "param_drift": drift,
-                                     "coded_bits_est": coded}
+                                     "coded_bits_est": coded, "rejected": rejected,
+                                     "nonfinite": nonfinite, "alive": alive}
 
     return step

@@ -40,6 +40,21 @@ K > 1 rank 0 writes behind a barrier and every rank reads.  Each step's
 noise comes from a generator seeded from (seed, rank, step), so a resumed
 run draws the noise the uninterrupted run draws.  ``--repeat-batch``
 trains every step on the first batch the run draws.
+
+``--guard`` arms the non-finite step guard (:mod:`repro_torch.launch.steps`)
+and a :class:`~repro_torch.core.faults.Watchdog`: after each good step it
+keeps a host snapshot of the state, and after ``--rollback-after``
+consecutive rejected steps (or half of a trailing window of 4 x that)
+it rolls the run back to it.  ``--fault-spec`` schedules faults
+(:mod:`repro_torch.core.faults`, scope ``train``: ``nan_grad``, ``drop``,
+``wire_corrupt`` inside the step, keyed on the loop's step, and the
+``ckpt_*`` kinds applied to the checkpoint saved at a step); a bad spec
+exits 2.  Rejected steps log `` REJECTED``, steps with a dropped worker
+`` alive=a/K``, and a guarded run ends with ``[train] guard: ...``::
+
+    python -m repro_torch.launch.train --reduced --device cpu --optimizer qgenx \
+        --compression int8 --steps 6 --guard --rollback-after 2 \
+        --fault-spec "nan_grad@1;wire_corrupt@3-4"
 """
 
 from __future__ import annotations
@@ -59,6 +74,7 @@ from repro_torch import convert
 from repro_torch.checkpoint import checkpointing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import ARCHS, get_config
+from repro_torch.core import faults
 from repro_torch.core.exchange import (
     ExchangeConfig,
     ProcessGroupComm,
@@ -74,6 +90,7 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.model import build
 from repro_torch.optim import optimizers as opt
+from repro_torch.optim import qgenx as qgenx_opt
 from repro_torch.optim.optimizers import OPTIMIZERS, OptimizerConfig
 
 
@@ -135,6 +152,14 @@ def parser() -> argparse.ArgumentParser:
                     help="randk / ef-randk: fraction of coordinates kept per worker")
     ap.add_argument("--ef-topk-frac", type=float, default=0.25,
                     help="ef21-topk: fraction of innovation coordinates each worker ships")
+    ap.add_argument("--guard", action="store_true",
+                    help="arm the non-finite step guard (a rejected step leaves the "
+                         "state as it was) and a watchdog that rolls back to the last "
+                         "good snapshot")
+    ap.add_argument("--rollback-after", type=int, default=3,
+                    help="watchdog: roll back after this many CONSECUTIVE rejected steps "
+                         "(a >=50%% rejection rate over a 4x window also triggers)")
+    faults.add_fault_spec_flag(ap, scope="train")
     ap.add_argument("--checkpoint-dir", default="")
     ap.add_argument("--checkpoint-every", type=int, default=0)
     ap.add_argument("--allow-ckpt-reset", action="store_true",
@@ -178,8 +203,10 @@ def state_trees(model, opt_state, ex_state) -> dict:
             "ex_state": ex_state}
 
 
-def _save(path: str, step: int, model, opt_state, ex_state, rank: int, world: int) -> dict:
-    """Rank 0 writes, the others wait at a barrier; ``{"step", "bytes",
+def _save(path: str, step: int, model, opt_state, ex_state, rank: int, world: int,
+          spec: faults.FaultSpec, log) -> dict:
+    """Rank 0 writes (then applies the checkpoint faults ``spec`` names for
+    ``step``), the others wait at a barrier; ``{"step", "bytes",
     "seconds"}`` (bytes 0 on the other ranks)."""
     t0 = time.perf_counter()
     info = {"bytes": 0}
@@ -187,7 +214,12 @@ def _save(path: str, step: int, model, opt_state, ex_state, rank: int, world: in
         info = checkpointing.save(path, step, state_trees(model, opt_state, ex_state))
     if world > 1:
         dist.barrier()
-    return {"step": step, "bytes": info["bytes"], "seconds": time.perf_counter() - t0}
+    out = {"step": step, "bytes": info["bytes"], "seconds": time.perf_counter() - t0}
+    if rank == 0:
+        for kind in spec.ckpt_faults_at(step):
+            faults.inject_ckpt_fault(path, step, kind)
+            log(f"[train] fault: injected {kind} into checkpoint {step}")
+    return out
 
 
 @torch.no_grad()
@@ -226,21 +258,40 @@ def restore_checkpoint(args, model, opt_state, ex_state, device, log=print):
     return opt_state, ex_state, info
 
 
+def _rollback(watchdog: faults.Watchdog, model, device):
+    """Restore the watchdog's snapshot: the params in place, the optimizer
+    and exchange states as new device copies; ``(snapshot step, opt_state,
+    ex_state)``."""
+    snap_step, trees = watchdog.rollback(device)
+    with torch.no_grad():
+        for p, v in zip(model.param_leaves(), trees["params"]):
+            p.copy_(v)
+    return snap_step, trees["opt_state"], trees["ex_state"]
+
+
 def run(args, log=print, exchange: Optional[ExchangeConfig] = None,
-        config: Optional[ModelConfig] = None) -> dict:
+        config: Optional[ModelConfig] = None, on_step=None) -> dict:
     """Train per ``args``; returns, one entry per step run (replicated over
     workers), ``loss``, ``wire_bytes``, ``param_drift``,
-    ``coded_bits_est`` and ``step_s``, with ``start_step`` (the restored
+    ``coded_bits_est``, ``rejected``, ``nonfinite``, ``alive`` and
+    ``step_s``, with ``start_step`` (the restored
     step, else 0), ``restored`` (the restore's step, checkpoint bytes and
     seconds, or None), ``saves`` (each save's step, bytes and
     seconds), ``levels`` (the final primary level table as a list,
-    None for a compressor without one) and ``ex_state`` (the final
-    exchange state, with the contractive tier's error memory).
+    None for a compressor without one), ``ex_state`` (the final
+    exchange state, with the contractive tier's error memory) and, under
+    ``--guard``, ``guard`` (the watchdog's ``nonfinite_steps``,
+    ``rejected`` and ``rollbacks`` counts), ``snapshots`` (each
+    snapshot's step, bytes and seconds) and ``rollbacks`` (each
+    rollback's loop step, the snapshot's step and seconds).
     ``exchange`` replaces the exchange config the flags give
     (for fields that have no flag, such as ``use_device_prng``);
     ``config`` replaces the model config of ``--arch`` / ``--reduced``
-    (``--dtype`` still applies)."""
+    (``--dtype`` still applies); ``on_step(step, model, opt_state,
+    ex_state, metrics)``, when given, is called after each step once the
+    watchdog has acted."""
     device = resolve_device(args.device)
+    spec = faults.parse_fault_spec_arg(args.fault_spec, scope="train")
     comm, rank, world, device = _init_distributed(device)
     try:
         cfg = config or get_config(args.arch)
@@ -256,24 +307,33 @@ def run(args, log=print, exchange: Optional[ExchangeConfig] = None,
         ex = make_exchange(exchange or build_exchange_config(args), comm)
         # the template and K size a contractive compressor's error memory
         ex_state = ex.init_state(device, template=model.param_leaves(), num_workers=world)
-        step_fn = make_train_step(model, opt_cfg, ex)
+        step_fn = make_train_step(model, opt_cfg, ex, guard=args.guard,
+                                  fault_spec=spec if spec.events else None)
+        watchdog = faults.Watchdog(args.rollback_after) if args.guard else None
+        say = log if rank == 0 else (lambda m: None)
         pipe = make_pipeline(cfg.vocab_size, args.batch, args.seq, seed=args.seed)
         rows = slice(rank * args.batch // world, (rank + 1) * args.batch // world)
-        if rank == 0:
-            log(f"[train] arch={cfg.name} params={cfg.param_count()} dtype={cfg.dtype} "
-                f"device={device} workers={world} optimizer={args.optimizer} "
-                + (f"method={args.method} " if args.optimizer == "qgenx" else "")
-                + f"compressor={ex.cfg.compressor} compression={args.compression} "
-                f"mode={ex.cfg.mode} sync_every={ex.cfg.sync_every} "
-                f"recenter_every={ex.cfg.recenter_every} "
-                f"level_schedule={ex.cfg.level_schedule}")
+        say(f"[train] arch={cfg.name} params={cfg.param_count()} dtype={cfg.dtype} "
+            f"device={device} workers={world} optimizer={args.optimizer} "
+            + (f"method={args.method} " if args.optimizer == "qgenx" else "")
+            + f"compressor={ex.cfg.compressor} compression={args.compression} "
+            f"mode={ex.cfg.mode} sync_every={ex.cfg.sync_every} "
+            f"recenter_every={ex.cfg.recenter_every} "
+            f"level_schedule={ex.cfg.level_schedule}")
+        if spec.events:
+            say(f"[train] fault schedule: {args.fault_spec}")
+            if spec.has_device_events and not args.guard:
+                say("[train] WARNING: device faults scheduled without --guard "
+                    "— non-finite steps will NOT be rejected")
         out = {"loss": [], "wire_bytes": [], "param_drift": [], "coded_bits_est": [],
-               "step_s": [], "start_step": 0, "restored": None, "saves": []}
+               "rejected": [], "nonfinite": [], "alive": [],
+               "step_s": [], "start_step": 0, "restored": None, "saves": [],
+               "guard": None, "snapshots": [], "rollbacks": []}
         ckpt = args.checkpoint_dir
         if ckpt and (checkpointing.latest_step(ckpt) is not None
                      or checkpointing.available_steps(ckpt)):
             opt_state, ex_state, out["restored"] = restore_checkpoint(
-                args, model, opt_state, ex_state, device, log if rank == 0 else (lambda m: None))
+                args, model, opt_state, ex_state, device, say)
             out["start_step"] = out["restored"]["step"]
             pipe.restore({"step": out["start_step"], "seed": args.seed})
         fixed = to_device(next(pipe), device, rows) if args.repeat_batch else None
@@ -281,34 +341,71 @@ def run(args, log=print, exchange: Optional[ExchangeConfig] = None,
             batch = fixed if fixed is not None else to_device(next(pipe), device, rows)
             noise = step_noise(args.seed, rank, step, device)
             t0 = time.perf_counter()
-            opt_state, ex_state, metrics = step_fn(opt_state, ex_state, batch, noise)
+            # the fault schedule is keyed on the loop's step, not the optimizer's
+            # count (a rejected step does not advance it)
+            opt_state, ex_state, metrics = step_fn(opt_state, ex_state, batch, noise,
+                                                   fault_step=step)
             loss = float(metrics["loss"])  # waits for the step's device work
             dt = time.perf_counter() - t0
             drift = float(metrics["param_drift"])
             coded = float(metrics["coded_bits_est"])
+            rejected = bool(metrics["rejected"])
             out["loss"].append(loss)
             out["wire_bytes"].append(float(metrics["wire_bytes"]))
             out["param_drift"].append(drift)
             out["coded_bits_est"].append(coded)
+            for k in ("rejected", "nonfinite", "alive"):
+                out[k].append(metrics[k])
             out["step_s"].append(dt)
-            if rank == 0 and (step % args.log_every == 0 or step == args.steps - 1):
+            if watchdog is not None:
+                if watchdog.observe(step, rejected, bool(metrics["nonfinite"])):
+                    if isinstance(opt_state, qgenx_opt.QGenXOptState):
+                        say(f"[train] watchdog: optimizer stats at rollback "
+                            f"{qgenx_opt.state_norms(opt_state)}")
+                    t1 = time.perf_counter()
+                    opt_state = ex_state = None  # free the device state first
+                    snap, opt_state, ex_state = _rollback(watchdog, model, device)
+                    out["rollbacks"].append({"step": step, "to_step": snap,
+                                             "seconds": time.perf_counter() - t1})
+                    say(f"[train] watchdog: rolled back to the step-{snap} snapshot "
+                        f"({watchdog.summary()})")
+                elif not rejected:
+                    t1 = time.perf_counter()
+                    watchdog.record_good(step + 1, {"params": model.param_leaves(),
+                                                    "opt_state": opt_state,
+                                                    "ex_state": ex_state})
+                    out["snapshots"].append({"step": step + 1,
+                                             "bytes": watchdog.snapshot_bytes,
+                                             "seconds": time.perf_counter() - t1})
+            if step % args.log_every == 0 or step == args.steps - 1:
                 tail = f" drift={drift:.3e}" if ex.cfg.sync_every > 1 else ""
                 if coded:
                     tail += f" coded_bits={coded:.3e}"
-                log(f"[train] step={step} loss={loss:.4f} dt={dt * 1e3:.0f}ms "
+                if rejected:
+                    tail += " REJECTED"
+                if metrics["alive"] != world:
+                    tail += f" alive={metrics['alive']:.0f}/{world}"
+                say(f"[train] step={step} loss={loss:.4f} dt={dt * 1e3:.0f}ms "
                     f"wire={metrics['wire_bytes']:.3e}B{tail}")
+            if on_step is not None:
+                on_step(step, model, opt_state, ex_state, metrics)
             if ckpt and args.checkpoint_every and (step + 1) % args.checkpoint_every == 0:
                 out["saves"].append(_save(ckpt, step + 1, model, opt_state, ex_state,
-                                          rank, world))
+                                          rank, world, spec, say))
         # no step ran (restored at or past --steps): save nothing, or the
         # 'latest' pointer would move below the restored step
         if ckpt and out["step_s"]:
             out["saves"].append(_save(ckpt, args.steps, model, opt_state, ex_state,
-                                      rank, world))
+                                      rank, world, spec, say))
+        if watchdog is not None:
+            out["guard"] = {"nonfinite_steps": watchdog.nonfinite_steps,
+                            "rejected": watchdog.rejected_steps,
+                            "rollbacks": watchdog.rollbacks}
+            say(f"[train] guard: {watchdog.summary()}")
         out["levels"] = ex_state.levels.tolist() if ex.compressor.has_levels else None
         out["ex_state"] = ex_state
-        if rank == 0 and ex.cfg.level_schedule == "qada" and out["levels"] is not None:
-            log(f"[train] qada levels={np.round(np.asarray(out['levels']), 4)}")
+        if ex.cfg.level_schedule == "qada" and out["levels"] is not None:
+            say(f"[train] qada levels={np.round(np.asarray(out['levels']), 4)}")
         return out
     finally:
         if world > 1:

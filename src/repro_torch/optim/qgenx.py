@@ -52,6 +52,24 @@ def init_qgenx_state(cfg: OptimizerConfig, params) -> QGenXOptState:
     )
 
 
+def state_norms(state: QGenXOptState) -> dict:
+    """Host-side diagnostic of the recursion's sufficient statistics:
+    ``{"y_l2", "sum_sq", "count", "prev_half_l2"}`` (floats / an int).
+
+    The train loop's watchdog prints it when a rollback fires.  ``sum_sq``
+    is a monotone accumulator: one non-finite increment destroys every
+    later adaptive gamma, which is why the step guard rejects the whole
+    state update, never just the params."""
+    def l2(tree):
+        if tree is None:
+            return 0.0
+        return float(torch.sqrt(sum(torch.sum(torch.square(l.float()))
+                                    for l in tree_leaves(tree))))
+
+    return {"y_l2": l2(state.y), "sum_sq": float(state.sum_sq),
+            "count": int(state.count), "prev_half_l2": l2(state.prev_half)}
+
+
 def local_sq_diff(g1, g2) -> torch.Tensor:
     """This worker's ||g_t - g_{t+1/2}||^2 (the caller sums over workers)."""
     return sq_increment(g1, g2)

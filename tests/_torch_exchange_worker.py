@@ -8,9 +8,12 @@ handed seeds instead (:func:`run`; :func:`run_layerwise` takes the
 layerwise ``Exchange.pmean_tree`` of a small pytree instead,
 :func:`run_sparse` the sparse compressors' chained ``pmean_tree`` with
 their support draws replayed, :func:`run_sparse_step` the train step
-under them), saves the result and destroys the group.  :func:`run_group` starts the workers,
-joins them under a hard timeout and returns their outputs.
+under them, :func:`run_masked` ``pmean_tree`` with a liveness mask),
+saves the result and destroys the group.  :func:`run_group` starts the
+workers, joins them under a hard timeout and returns their outputs.
 """
+
+import dataclasses
 
 import numpy as np
 import torch.distributed as dist
@@ -145,7 +148,9 @@ def run_group(K, workdir, inputs, cases, backend="gloo", device="cpu", while_run
 
 def run_step(rank, world, store_path, in_path, out_dir, cases, backend, device):
     """Each case ``(name, method, bits, mode, sync_every, recenter_every,
-    steps, level_update_every)`` of ``_torch_step_k2_reference.CASES``: the port's train step on
+    steps, level_update_every[, fault spec])`` of ``_torch_step_k2_reference.CASES``
+    (a ``FAULT_CASES`` case with its spec appended: the step is then
+    guarded and takes the step index as ``fault_step``): the port's train step on
     reduced tinyllama-1.1b from the reference's initial params
     (``p0_{j}``), on this worker's rows of each step's batch, with this
     worker's noise draws replayed (``noise_{rank}_{i}``).  Saves
@@ -162,6 +167,7 @@ def run_step(rank, world, store_path, in_path, out_dir, cases, backend, device):
     from repro_torch.configs import get_config
     from repro_torch.convert import opt_state_to_jax, params_from_jax
     from repro_torch.core import exchange as xmod
+    from repro_torch.core.faults import FaultSpec
     from repro_torch.core.noise import ReplayNoise
     from repro_torch.core.quantization import QuantConfig
     from repro_torch.data.pipeline import to_device
@@ -175,8 +181,9 @@ def run_step(rank, world, store_path, in_path, out_dir, cases, backend, device):
     dist.init_process_group(backend, store=dist.FileStore(store_path, world),
                             rank=rank, world_size=world)
     try:
-        for i, (name, method, bits, mode, sync_every, recenter_every, steps,
-                every) in enumerate(cases):
+        for i, case in enumerate(cases):
+            name, method, bits, mode, sync_every, recenter_every, steps, every = case[:8]
+            spec = FaultSpec.parse(case[8]) if len(case) > 8 else None
             n_leaves = sum(1 for k in data.files if k.startswith("p0_"))
             model = params_from_jax([data[f"p0_{j}"] for j in range(n_leaves)],
                                     build(get_config("tinyllama-1.1b").reduced(), device=dev))
@@ -188,14 +195,16 @@ def run_step(rank, world, store_path, in_path, out_dir, cases, backend, device):
                                     level_update_every=every),
                 xmod.ProcessGroupComm())
             opt_cfg = OptimizerConfig(name=name, gamma_scale=0.02, method=method)
-            step = make_train_step(model, opt_cfg, ex)
+            step = make_train_step(model, opt_cfg, ex, guard=spec is not None,
+                                   fault_spec=spec)
             opt_state = opt.init_state(opt_cfg, model.param_leaves())
             ex_state = ex.init_state(dev)
             draws = sorted((k for k in data.files if k.startswith(f"noise_{rank}_")),
                            key=lambda k: int(k.rsplit("_", 1)[1]))
             noise = ReplayNoise([data[k] for k in draws])
             rows = slice(rank * 2, rank * 2 + 2)
-            out = {k: [] for k in ("loss", "wire_bytes", "param_drift", "coded_bits_est")}
+            out = {k: [] for k in ("loss", "wire_bytes", "param_drift", "coded_bits_est",
+                                   "rejected", "nonfinite", "alive")}
             levels = {}
             trace = None
             for t in range(steps):
@@ -204,7 +213,8 @@ def run_step(rank, world, store_path, in_path, out_dir, cases, backend, device):
                 recording = trace is None
                 if recording:
                     xmod.wire_trace_start()
-                opt_state, ex_state, m = step(opt_state, ex_state, batch, noise)
+                kw = {"fault_step": t} if spec is not None else {}
+                opt_state, ex_state, m = step(opt_state, ex_state, batch, noise, **kw)
                 if recording:
                     rec = xmod.wire_trace_stop()
                     trace = rec or None
@@ -354,6 +364,70 @@ def run_sparse_step(rank, world, store_path, in_path, out_dir, cases, backend, d
             res["opt_sum_sq"] = state.sum_sq
             res["wire_names"] = np.asarray([nm for nm, _ in trace], dtype=str)
             res["wire_nbytes"] = np.asarray([nb for _, nb in trace], np.int64)
+            np.savez(f"{out_dir}/out_{i}_{rank}.npz", **res)
+    finally:
+        dist.destroy_process_group()
+
+
+MASK_FRAC = 0.25
+MASK_QADA_EVERY = 1000  # no refresh inside the test: the merged histogram is held
+
+
+def mask_config(compressor, mode, bits, qada):
+    """The exchange of a masked case: qgenx / layerwise at bucket 256
+    (layerwise's threshold that of :data:`LAYERWISE_TREE`), none, randk or
+    the contractive tier at :data:`MASK_FRAC`; ``qada`` adds the QAda
+    schedule (its histogram merged, never refreshed)."""
+    from repro_torch.core.exchange import ExchangeConfig
+    from repro_torch.core.quantization import QuantConfig
+
+    kw = dict(compressor=compressor, mode=mode, rand_frac=MASK_FRAC, ef_topk_frac=MASK_FRAC)
+    if compressor == "layerwise":
+        return dataclasses.replace(layerwise_config(mode, bits), **(
+            dict(level_schedule="qada", level_update_every=MASK_QADA_EVERY) if qada else {}))
+    if bits:
+        kw["quant"] = QuantConfig(num_levels=15 if bits == 8 else 5, bits=bits, bucket_size=256)
+    if qada:
+        kw.update(level_schedule="qada", level_update_every=MASK_QADA_EVERY)
+    return ExchangeConfig(**kw)
+
+
+def run_masked(rank, world, store_path, in_path, out_dir, cases, backend, device):
+    """Each case ``(compressor, mode, bits, qada)``: ``Exchange.pmean_tree``
+    of this worker's tree (``{leaf}_{case}_{rank}``) with this worker's
+    liveness mask (``mask_{case}_{rank}``), then the same exchange with no
+    mask, each with the noise ``noise_{case}_{rank}_{j}`` replayed.  Saves
+    the means' leaves concatenated in tree order (``mean``,
+    ``mean_nomask``) and the new states' histograms and call counts."""
+    import torch
+
+    from repro_torch.core import exchange as xmod
+    from repro_torch.core.noise import ReplayNoise
+
+    torch.set_num_threads(1)  # small tensors; the suite's workers share the cores
+    dev = torch.device(device)
+    data = np.load(in_path)
+    dist.init_process_group(backend, store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        for i, case in enumerate(cases):
+            ex = xmod.make_exchange(mask_config(*case), xmod.ProcessGroupComm())
+            tree = {name: torch.from_numpy(data[f"{name}_{i}_{rank}"]).to(dev)
+                    for name in LAYERWISE_TREE}
+            mask = torch.tensor(float(data[f"mask_{i}_{rank}"]), dtype=torch.float32,
+                                device=dev)
+            draws = sorted((k for k in data.files if k.startswith(f"noise_{i}_{rank}_")),
+                           key=lambda k: int(k.rsplit("_", 1)[1]))
+            res = {}
+            for tag, m in (("", mask), ("_nomask", None)):
+                noise = ReplayNoise([data[k] for k in draws])
+                mean, state = ex.pmean_tree(tree, ex.init_state(dev), noise, mask=m)
+                if noise.remaining:
+                    raise RuntimeError("not every noise draw was used")
+                res[f"mean{tag}"] = np.concatenate([mean[k].cpu().numpy().ravel()
+                                                    for k in sorted(mean)])
+                res[f"hist{tag}"] = state.hist.cpu().numpy()
+                res[f"step{tag}"] = np.asarray(state.step)
             np.savez(f"{out_dir}/out_{i}_{rank}.npz", **res)
     finally:
         dist.destroy_process_group()

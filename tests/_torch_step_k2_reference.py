@@ -26,9 +26,14 @@ weights from ``PRNGKey(0)``), runs ``make_train_step`` of case ``CASE``
   ``optda`` step uses the second only); the re-centering exchange's key
   is ``fold_in(key, 0x5eed)``.  Only the exchanges that run draw: the
   schedule is read off ``opt_state.count`` as the step gates it, and
-  checked against the exchange-call counter;
+  checked against the exchange-call counter (which a rejected step leaves
+  where it was);
 * the trace-time wire recorder's ``(name, nbytes)`` list of the jitted
   step (``wire_names``, ``wire_nbytes``: every call site once).
+
+A case of :data:`FAULT_CASES` builds the step with ``guard=True`` and its
+fault schedule and passes each step's index as ``fault_step``; every case
+also writes the metrics ``rejected``, ``nonfinite`` and ``alive``.
 
 The reference runs with ``use_pallas=True``, the path the port's kernels
 follow (interpret-mode Pallas; the 2-device rendezvous does not stall at
@@ -50,6 +55,18 @@ CASES = {
     "c": ("extra_adam", "de", 8, "two_phase", 2, 0, 4, 0),
     "d": ("qgenx", "de", 8, "two_phase", 2, 2, 4, 2),
 }
+# guarded cases: (the case's fields as above, its fault schedule): worker
+# 0's gradients NaN at step 1, worker 1 dropped at step 2
+FAULT_CASES = {
+    "g": (("qgenx", "de", 8, "two_phase", 1, 0, 3, 0), "nan_grad@1:worker=0;drop@2:worker=1"),
+}
+METRICS = ("loss", "wire_bytes", "param_drift", "coded_bits_est", "rejected", "nonfinite",
+           "alive")
+
+
+def case_fields(case):
+    """The fields of a case of :data:`CASES` or :data:`FAULT_CASES`."""
+    return CASES[case] if case in CASES else FAULT_CASES[case][0]
 
 
 def exchange_keys(case, count, key):
@@ -57,7 +74,7 @@ def exchange_keys(case, count, key):
     ``count`` runs, in order (``jax`` imported by the caller)."""
     import jax
 
-    name, method, _, _, sync_every, recenter_every, _, _ = CASES[case]
+    name, method, _, _, sync_every, recenter_every, _, _ = case_fields(case)
     k1, k2 = jax.random.split(key)
     keys = []
     if count % sync_every == sync_every - 1:
@@ -84,6 +101,7 @@ def main(case: str, out_path: str, path: str = "pallas") -> None:
     from repro.configs.registry import get_config
     from repro.core.exchange import ExchangeConfig, make_exchange, wire_trace_start, \
         wire_trace_stop
+    from repro.core.faults import FaultSpec
     from repro.core.quantization import QuantConfig
     from repro.data.pipeline import _batch_tokens, PipelineConfig
     from repro.models.model import build
@@ -92,7 +110,7 @@ def main(case: str, out_path: str, path: str = "pallas") -> None:
     K = 2
     assert jax.device_count() == K, "run with --xla_force_host_platform_device_count=2"
     steps.shard_map = shard_map_shim
-    name, method, bits, mode, sync_every, recenter_every, n_steps, every = CASES[case]
+    name, method, bits, mode, sync_every, recenter_every, n_steps, every = case_fields(case)
     cfg = get_config("tinyllama-1.1b").reduced()
     model = build(cfg)
     params = model.init(jax.random.PRNGKey(0))
@@ -106,7 +124,9 @@ def main(case: str, out_path: str, path: str = "pallas") -> None:
     opt_state = opt.init_state(opt_cfg, params)
     ex_state = ex.init_state()
     mesh = Mesh(np.array(jax.devices()), ("data",))
-    step = jax.jit(steps.make_train_step(model, opt_cfg, exchange=ex, mesh=mesh))
+    spec = FaultSpec.parse(FAULT_CASES[case][1]) if case in FAULT_CASES else None
+    step = jax.jit(steps.make_train_step(model, opt_cfg, exchange=ex, mesh=mesh,
+                                         guard=spec is not None, fault_spec=spec))
 
     leaves = jax.tree_util.tree_leaves(params)
     out = {f"p0_{j}": np.asarray(l) for j, l in enumerate(leaves)}
@@ -117,7 +137,7 @@ def main(case: str, out_path: str, path: str = "pallas") -> None:
         rows = -(-n // BUCKET)
     pc = PipelineConfig(vocab_size=cfg.vocab_size, batch=BATCH, seq_len=SEQ + 1, seed=0)
     draws = [[] for _ in range(K)]
-    metrics = {k: [] for k in ("loss", "wire_bytes", "param_drift", "coded_bits_est")}
+    metrics = {k: [] for k in METRICS}
     calls = []
     base = jax.random.PRNGKey(7)
     with mesh:
@@ -136,11 +156,15 @@ def main(case: str, out_path: str, path: str = "pallas") -> None:
             before = int(ex_state.step)
             if t == 0:
                 wire_trace_start()
-            params, opt_state, ex_state, m = step(params, opt_state, ex_state, batch, key)
+            extra = [jnp.int32(t)] if spec is not None else []
+            params, opt_state, ex_state, m = step(params, opt_state, ex_state, batch, key,
+                                                  *extra)
             if t == 0:
                 trace = wire_trace_stop()
             calls.append(int(ex_state.step) - before)
-            assert calls[-1] == len(keys), (t, calls[-1], len(keys))
+            # a rejected step's exchanges ran (and drew) but its state is the old one
+            ran = 0 if float(m["rejected"]) else len(keys)
+            assert calls[-1] == ran, (t, calls[-1], ran)
             for k in metrics:
                 metrics[k].append(float(m[k]))
             out[f"levels_{t}"] = np.asarray(ex_state.levels)

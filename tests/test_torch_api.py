@@ -14,6 +14,7 @@ from repro_torch.core.exchange import (
     make_exchange,
 )
 from repro_torch.core.extragradient import QGenXConfig, qgenx_init
+from repro_torch.core.faults import FaultSpec
 from repro_torch.core.noise import GeneratorNoise, ReplayNoise
 from repro_torch.core.quantization import QuantConfig, exponential_levels, uniform_levels
 from repro_torch.core.vi import bilinear_saddle
@@ -104,10 +105,6 @@ def test_unported_optimizer_and_step_options_are_rejected():
         OptimizerConfig(name="sgd")
     model = build(get_config("tinyllama-1.1b").reduced(), device="cpu")
     ex = make_exchange(ExchangeConfig(quant=Q8))
-    with pytest.raises(TypeError, match="guard"):
-        make_train_step(model, OptimizerConfig(), ex, guard=True)
-    with pytest.raises(TypeError, match="fault_spec"):
-        make_train_step(model, OptimizerConfig(), ex, fault_spec="nan@1")
     with pytest.raises(ValueError, match="da"):
         make_train_step(model, OptimizerConfig(name="qgenx", method="da"), ex)
 
@@ -133,10 +130,21 @@ def test_contradictory_compressor_flags_raise(argv):
 
 
 @pytest.mark.parametrize("argv", [["--overlap", "bucketed"], ["--optimizer", "sgd"],
-                                  ["--guard"], ["--no-exchange-plan"]])
+                                  ["--num-buckets", "2"], ["--no-exchange-plan"]])
 def test_train_cli_has_no_unported_flags(argv, capsys):
     with pytest.raises(SystemExit):
         train.parser().parse_args(argv)
+
+
+@pytest.mark.parametrize("spec,why", [("nan_grad@x", "bad step range"),
+                                      ("nan_logits@1", "is not a train fault")])
+def test_train_cli_exits_2_on_a_bad_fault_spec(spec, why, capsys):
+    with pytest.raises(SystemExit) as e:
+        train.main(["--reduced", "--device", "cpu", "--steps", "1", "--fault-spec", spec])
+    assert e.value.code == 2
+    assert "[train] bad --fault-spec" in capsys.readouterr().err
+    with pytest.raises(ValueError, match=why):
+        FaultSpec.parse_cli(spec, "train")
 
 
 @pytest.mark.parametrize("argv,compressor,rand_frac,ef_topk_frac", [
