@@ -14,7 +14,7 @@ imports only ``repro_torch`` (from ``src/`` beside this file) and:
    device-PRNG variants' bound;
 3. holds every kernel against its plain PyTorch version on the card over
    bits {4, 8} x q_norm {inf, 2} x K {1, 2, 8} x bucket {512, 130, 2,
-   1024, 4096, and 1023 for int8}, with 37 rows (not a multiple of any
+   1024, 4096, 256 (the KV-cache's), and 1023 for int8}, with 37 rows (not a multiple of any
    tile) and with more rows than the card holds warps (kernels 1 and 2's
    grid-stride loop wraps), all-zero rows and a NaN row (a NaN
    coordinate for kernel 1, a NaN worker norm for kernels 2 and 4), and
@@ -57,7 +57,9 @@ imports only ``repro_torch`` (from ``src/`` beside this file) and:
       reduced-size run on the card is then held against the same run on
       the CPU (same weights, exact exchange; int8 with host noise and
       with the device PRNG from the same seeds);
-   c. the local-update regime at the same width: 4 qgenx ``de`` int8
+   c. the local-update regime at the same width but 16 of the 22 layers
+      (the depth cut keeps the script's time; the phase is checkpoint
+      I/O): 4 qgenx ``de`` int8
       two_phase steps with ``sync_every=2``, ``recenter_every=4`` and a
       checkpoint every 2 steps, the wire recorder on: ``wire_bytes`` 0
       on local steps and the analytic bytes plus the 16,384 probe bytes
@@ -127,6 +129,18 @@ imports only ``repro_torch`` (from ``src/`` beside this file) and:
       held to the plain version and timed at that [4 x 64] shape (the
       ``toy-vi-uq8`` row: device time from ``torch.profiler``,
       ``wrapper_ms``) (``toy_vi_path``);
+   h. the serving path (``repro_torch.launch.serve`` at the full width of
+      tinyllama-1.1b, f32, ``--batch 16 --requests 48 --prompt-len 512
+      --gen 128 --page-size 16``): ``--kv-bits`` 8, 4 and 32, each request
+      answered, kernel 1 launched 2 x 22 times a wave and a prefill and
+      kernel 3 2 x 22 times a wave, the cache >= 2x / >= 4x below fp32, the
+      fp32 tokens equal a full forward's argmax but at near ties; one
+      request bit-equal alone and packed (tokens and pages); half the
+      pages (admission waits); ``--guard`` under three faults (typed
+      results, the other requests' tokens the clean run's); the int8
+      two_phase logit exchange at K = 1 (kernels 1-3 on the logits);
+      then kernels 1 and 3 timed at the cache's shapes (``serve_path``,
+      ``serve_kernel_rows``: the ``kv-*`` rows, device and wrapper time);
 5. runs each kernel at its main-path shape (the flat exchange buffer of
    tinyllama-1.1b, 2,148,532 rows x 512): kernels 1, 2, 3 in int8 as
    two_phase chains them, kernels 1 and 4 in int4 as gather does, and
@@ -298,7 +312,9 @@ def kernel_parity(torch) -> dict:
     # grid-stride loop wraps.  Buckets 2 and 1023 (VEC 2 and 1), 130 (a
     # ragged last chunk), 512 (one warp's registers), 1024 (QuantConfig's
     # default) and 4096 (wider than the registers: the second pass).
-    shapes = [(37, b) for b in (512, 130, 2, 1024, 4096)] + [(37, 1023), (wrap_rows(torch), 512)]
+    # 256: the paged KV-cache's bucket (tinyllama-1.1b's 4 kv heads x 64)
+    shapes = [(37, b) for b in (512, 130, 2, 1024, 4096, 256)] + [(37, 1023),
+                                                                   (wrap_rows(torch), 512)]
     for bits in (8, 4):
         s = 15 if bits == 8 else 5
         ns = s + 2
@@ -887,6 +903,10 @@ def compress_bytes(ex, shapes) -> float:
 
 LOCAL_STEPS, SYNC_EVERY, RECENTER_EVERY, CKPT_EVERY = 4, 2, 4, 2
 RESUME_LOSS_RTOL = 1e-6  # see local_update_path
+# phase 4c's depth: its time is the checkpoints' I/O (five 11.3 GB saves
+# and restores at ~37 s each at 22 layers); cut to 16 of 22 layers so the
+# whole script keeps its time with phase 4h (full width) added
+LOCAL_UPDATE_LAYERS = 16
 
 
 def _leaf_crcs(trees) -> dict:
@@ -948,7 +968,8 @@ def local_update_path(torch, batch: int, seq: int) -> dict:
     ckpt_dir = os.path.join(here, "build", "chip_smoke_ckpt")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     os.makedirs(ckpt_dir)
-    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), dtype="bfloat16")
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), dtype="bfloat16",
+                              num_layers=LOCAL_UPDATE_LAYERS)
     free = shutil.disk_usage(ckpt_dir).free
     # at most 12 bytes a coordinate (f32 params, anchor and dual
     # accumulator); two checkpoints on disk at once and a write's margin
@@ -956,8 +977,8 @@ def local_update_path(torch, batch: int, seq: int) -> dict:
     while need(cfg) > free and cfg.num_layers > 1:
         cfg = dataclasses.replace(cfg, num_layers=cfg.num_layers - 1)
     if cfg.num_layers < get_config("tinyllama-1.1b").num_layers:
-        log(f"  phase 4c: depth cut to {cfg.num_layers} layers: {free} bytes free on the "
-            f"checkout's disk")
+        log(f"  phase 4c: depth cut to {cfg.num_layers} layers (the script's time; "
+            f"{free} bytes free on the checkout's disk)")
     if need(cfg) > free:
         fail(f"phase 4c: {free} bytes free, two checkpoints need {need(cfg) / 1.25:.0f}")
     leaves = _leaves(torch, cfg)
@@ -1841,6 +1862,311 @@ class _NumpyNoise:
         return torch.from_numpy(self.rng.permutation(n)[:k].astype("int32")).to(device)
 
 
+# ---------------------------------------------------------------------------
+# phase 4h: the serving path (paged quantized KV-cache, continuous batching)
+# ---------------------------------------------------------------------------
+
+SERVE_ARGV = ("--batch", "16", "--requests", "48", "--prompt-len", "512", "--gen", "128",
+              "--page-size", "16")
+SERVE_FAULTS = "nan_logits@5:slot=2;page_corrupt@9:slot=7;slot_drop@12:slot=11"
+# a full forward and the paged decode sum in different orders: where their
+# argmax differs, the full forward's top two logits must lie within this
+SERVE_GAP_TOL = 1e-3
+CACHE_KERNELS = ("quantize_blocks", "dequantize_blocks")
+
+
+def _serve_args(*extra, reduced=False, device="cuda"):
+    from repro_torch.launch import serve
+
+    argv = list(SERVE_ARGV) + list(extra) + ["--device", device]
+    return serve.parser().parse_args(argv + (["--reduced"] if reduced else []))
+
+
+def _serve_run(torch, args, tag, counted=True):
+    """One ``repro_torch.launch.serve.run``: the launch counts reset just
+    before and read just after; returns its dict with ``counts``, ``peak``,
+    the per-wave and per-prefill seconds and ``tok_s``."""
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import serve
+
+    lines = []
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launch_counts()
+    out = serve.run(args, say=lines.append)
+    counts = cuda.launch_counts()
+    out["peak"] = torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0
+    eng = out["engine"]
+    out["counts"] = counts
+    out["tokens"] = sum(len(v) for v in out["out"].values())
+    out["tok_s"] = out["tokens"] / out["wall_s"]
+    waves, pre = sorted(eng.timing["wave_s"]), sorted(eng.timing["prefill_s"])
+    out["wave_ms"] = 1e3 * waves[len(waves) // 2]
+    out["prefill_ms"] = 1e3 * pre[len(pre) // 2]
+    for line in lines:
+        if not line.startswith(("[serve]   step", "[serve] result")):
+            log(f"    {line}")
+    st = eng.sched.stats
+    log(f"  phase 4h {tag}: {out['tokens']} tokens, {eng.sched.decode_steps} waves, "
+        f"{len(pre)} prefills in {out['wall_s']:.3f} s: {out['tok_s']:.1f} tok/s; prefill "
+        f"{out['prefill_ms']:.2f} ms, decode {out['wave_ms']:.2f} ms a wave (median; "
+        f"{1e3 * waves[0]:.2f}-{1e3 * waves[-1]:.2f}); peak {out['peak']} B; cache "
+        f"{eng.cache_bytes} B ({eng.fp32_cache_bytes / eng.cache_bytes:.2f}x below fp32); "
+        f"max_concurrent {st['max_concurrent']}, mid_decode_admits "
+        f"{st['mid_decode_admits']}; launches {[(k, counts[k]) for k in CACHE_KERNELS]}")
+    if counted:
+        want1 = 2 * eng.pc.num_layers * (eng.sched.decode_steps + len(pre))
+        want3 = 2 * eng.pc.num_layers * eng.sched.decode_steps
+        if args.kv_bits == "32":
+            want1 = want3 = 0
+        got = (counts["quantize_blocks"], counts["dequantize_blocks"])
+        if got != (want1, want3) or any(counts[k] for k in counts if k not in CACHE_KERNELS):
+            fail(f"phase 4h {tag}: launches {counts}, want kernel 1 {want1} (2 x "
+                 f"{eng.pc.num_layers} a wave and a prefill) and kernel 3 {want3}")
+    return out
+
+
+def _check_fp32_tokens(torch, run) -> int:
+    """Every fp32 paged request's tokens against a full forward's argmax
+    over its prompt + generated tokens; a differing token must be a near
+    tie (top two within SERVE_GAP_TOL).  Returns the near ties seen."""
+    eng, ties = run["engine"], 0
+    reqs = {s.req.rid: s.req for s in eng.sched.finished}
+    with torch.no_grad():
+        for rid, toks in run["out"].items():
+            prompt = list(reqs[rid].prompt)
+            seq = torch.tensor([prompt + toks[:-1]], device=eng.device)
+            logits = eng.model(seq)[0, len(prompt) - 1:]
+            pred = torch.argmax(logits, dim=-1).tolist()
+            for t, (a, b) in enumerate(zip(pred, toks)):
+                if a != b:
+                    top = torch.topk(logits[t], 2).values
+                    gap = float(top[0] - top[1])
+                    if gap >= SERVE_GAP_TOL:
+                        fail(f"phase 4h fp32: request {rid} token {t} is {b}, the full "
+                             f"forward's argmax {a} (gap {gap})")
+                    ties += 1
+    return ties
+
+
+def _request_pages(eng, rid):
+    """The pages a retired request held, in its table's order."""
+    return next(s.pages for s in eng.sched.finished if s.req.rid == rid)
+
+
+def _check_alone(torch, run) -> None:
+    """(b): the request that retires last in ``run`` (its pages are reused by
+    no one after it), served alone by a fresh engine on the same model: its
+    tokens and its pages' payloads and norms at every written position, all
+    layers, bit-equal to the packed run's."""
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import Request
+
+    eng = run["engine"]
+    last = next(rid for kind, rid, _, _ in reversed(run["events"]) if kind == "retire")
+    req = next(s.req for s in eng.sched.finished if s.req.rid == last)
+    alone = ServeEngine(eng.cfg, eng.model, policy="int8", page_size=eng.pc.page_size,
+                        n_slots=eng.n_slots, max_len=eng.pc.max_len, seed=0)
+    out = alone.run([Request(req.rid, list(req.prompt), req.max_new)])
+    if out[last] != run["out"][last]:
+        fail(f"phase 4h: request {last} alone {out[last][:8]}... != packed")
+    n_pos = len(req.prompt) + req.max_new - 1
+    pa, pb = _request_pages(alone, last), _request_pages(eng, last)
+    for name in eng.cache:
+        a = alone.cache[name][:, pa].flatten(1, 2)[:, :n_pos]
+        b = eng.cache[name][:, pb].flatten(1, 2)[:, :n_pos]
+        if not torch.equal(a, b):
+            fail(f"phase 4h: request {last}'s {name} differs alone and packed")
+    log(f"  phase 4h: request {last} ({len(out[last])} tokens, {len(pa)} pages of "
+        f"{eng.pc.page_size}) bit-equal alone and packed, tokens and pages")
+
+
+def _exchange_run(torch, run, counted) -> dict:
+    """(e): the engine with an int8 two_phase logit exchange at world size 1,
+    on ``run``'s model and its first 16 requests."""
+    from repro_torch.core.exchange import ExchangeConfig
+    from repro_torch.core.quantization import QuantConfig
+    from repro_torch.kernels import cuda
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import Request
+
+    base = run["engine"]
+    q = QuantConfig(num_levels=15, bits=8, bucket_size=512)
+    ex = ServeEngine(base.cfg, base.model, policy="int8", page_size=base.pc.page_size,
+                     n_slots=base.n_slots, max_len=base.pc.max_len, seed=0,
+                     exchange=ExchangeConfig(quant=q, mode="two_phase"))
+    reqs = [Request(s.req.rid, list(s.req.prompt), min(32, s.req.max_new))
+            for s in sorted(base.sched.finished, key=lambda s: s.req.rid)][:16]
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = ex.run(reqs)
+    wall = time.perf_counter() - t0
+    counts = cuda.launch_counts()
+    waves, L = ex.sched.decode_steps, ex.pc.num_layers
+    want = {"quantize_blocks": 2 * L * (waves + len(reqs)) + waves,
+            "dequant_reduce_requantize_blocks": waves, "dequantize_blocks": 2 * L * waves + waves}
+    if counted and {k: counts[k] for k in want} != want:
+        fail(f"phase 4h exchange: launches {counts}, want {want}")
+    if len(out) != len(reqs) or ex.wire_bytes != ex.wire_per_step * waves:
+        fail(f"phase 4h exchange: {len(out)} answered, wire {ex.wire_bytes} != "
+             f"{ex.wire_per_step} x {waves}")
+    n_tok = sum(len(v) for v in out.values())
+    wave_ms = 1e3 * sorted(ex.timing["wave_s"])[waves // 2]
+    log(f"  phase 4h logit exchange (int8 two_phase, K = 1, {len(reqs)} requests): "
+        f"{n_tok / wall:.1f} tok/s, decode {wave_ms:.2f} ms a wave (median), wire "
+        f"{ex.wire_per_step:.0f} B a wave, coded_bits_est {ex.coded_bits:.0f}, launches "
+        f"{ {k: counts[k] for k in want} }")
+    return {"counts": counts, "tok_s": n_tok / wall, "wave_ms": wave_ms}
+
+
+def serve_path(torch, reduced=False, device="cuda") -> dict:
+    """Phase 4h: ``repro_torch.launch.serve`` at full width (tinyllama-1.1b,
+    22 layers, f32 as the reference serves it, random weights from seed 0),
+    ``--batch 16 --requests 48 --prompt-len 512 --gen 128 --page-size 16``;
+    each run's model is freed before the next, so each peak is its own:
+
+    (a) ``--kv-bits 8``, ``4`` and ``32``: every request answers; kernel 1
+        launched 2 x 22 times a wave and a prefill, kernel 3 2 x 22 times a
+        wave (none at fp32); the cache >= 2x below fp32 at int8, >= 4x at
+        int4; the fp32 tokens equal a full forward's argmax over prompt +
+        generated tokens except at near ties (``SERVE_GAP_TOL``);
+    (b) after the int8 run, on its model, the request that retires last
+        served alone (``_check_alone``);
+    (e) then, on the same model, the engine with an int8 two_phase logit
+        exchange at world size 1 over the first 16 requests, 32 tokens
+        each: kernels 1-3 on the [16, 32000] logits once a wave,
+        ``wire_bytes`` the analytic count, every request answers;
+    (c) int8 with ``--num-pages`` at half the full provision, 16 requests
+        of ``--gen 32``: admission waits (at most 8 at once), every request
+        answers;
+    (d) int8 ``--guard --fault-spec SERVE_FAULTS``, 16 requests of
+        ``--gen 32`` (every slot busy at the faults' waves): the requests in
+        slots 2 and 7 quarantined, the one in slot 11 dropped, every other
+        request's tokens equal the first of (a)'s int8 tokens (the draws
+        are keyed by request and position), every page free.
+
+    Prints each run's tok/s, prefill and per-wave ms, peak and cache
+    bytes.  Returns the runs' numbers and launch counts."""
+    counted = device == "cuda"
+    kw = dict(reduced=reduced, device=device)
+    runs = {}
+    for bits in ("8", "4", "32"):
+        run = _serve_run(torch, _serve_args("--kv-bits", bits, **kw), f"kv-bits {bits}", counted)
+        eng = run["engine"]
+        if len(run["out"]) != 48 or eng.allocator.n_free != eng.pc.num_pages:
+            fail(f"phase 4h kv-bits {bits}: {len(run['out'])} of 48 requests answered")
+        ratio = eng.fp32_cache_bytes / eng.cache_bytes
+        if ratio < {"8": 2.0, "4": 4.0, "32": 1.0}[bits]:
+            fail(f"phase 4h kv-bits {bits}: cache only {ratio:.2f}x below fp32")
+        if bits == "32":
+            run["near_ties"] = _check_fp32_tokens(torch, run)
+            log(f"  phase 4h fp32: every token equals the full forward's argmax but "
+                f"{run['near_ties']} near ties (gap < {SERVE_GAP_TOL})")
+        if bits == "8":
+            _check_alone(torch, run)
+            runs["exchange"] = _exchange_run(torch, run, counted)
+            run["full_pages"] = eng.pc.num_pages
+        run["engine"] = eng = None
+        runs[bits] = run
+    clean = runs["8"]["out"]
+    # --gen 32: 34 pages a request, so half of the 544 a full provision
+    # of 16 slots takes admits 8 at once
+    half = _serve_run(torch, _serve_args("--kv-bits", "8", "--gen", "32", "--num-pages",
+                                         str(16 * 34 // 2), "--requests", "16", **kw),
+                      "int8, half the pages, 16 requests, gen 32", counted)
+    st = half["engine"].sched.stats
+    if len(half["out"]) != 16 or st["max_concurrent"] > 8:
+        fail(f"phase 4h half pages: {len(half['out'])} answered, max_concurrent "
+             f"{st['max_concurrent']}")
+    half["engine"] = None
+    guard = _serve_run(torch, _serve_args("--kv-bits", "8", "--guard", "--fault-spec",
+                                          SERVE_FAULTS, "--requests", "16", "--gen", "32",
+                                          **kw), "int8 --guard, faults, 16 requests, gen 32",
+                       False)
+    eng, events = guard["engine"], guard["events"]
+    hit = {(kind, slot, step): rid for kind, rid, slot, step in events}
+    q2, q7 = hit.get(("evict:quarantined", 2, 5)), hit.get(("evict:quarantined", 7, 9))
+    d11 = hit.get(("evict:dropped", 11, 12))
+    kinds = {rid: rr.kind for rid, rr in eng.results().items()}
+    bad = {rid: k for rid, k in kinds.items() if k != "ok"}
+    if None in (q2, q7, d11) or bad != {q2: "quarantined", q7: "quarantined", d11: "dropped"}:
+        fail(f"phase 4h guard: typed results {bad}, events {[e for e in events if ':' in e[0]]}")
+    # a request's draws are keyed by request and position: its first 32 - 2 (r % 3)
+    # tokens are the clean run's
+    diff = [rid for rid, toks in guard["out"].items() if toks != clean[rid][:len(toks)]]
+    if diff or eng.allocator.n_free != eng.pc.num_pages:
+        fail(f"phase 4h guard: requests {diff} differ from the clean run, "
+             f"{eng.allocator.n_free} pages free")
+    log(f"  phase 4h guard: requests {q2}, {q7} quarantined, {d11} dropped; the other "
+        f"{len(guard['out'])} equal the clean run; guard_retries "
+        f"{eng.sched.stats.get('guard_retries')}")
+    guard["engine"] = None
+    runs["half"], runs["guard"] = half, guard
+    return runs
+
+
+def serve_kernel_rows(torch, runs: dict, errs: dict) -> list:
+    """Kernels 1 and 3 at the shapes the cache gives them on phase 4h's
+    path: a decode wave's write ``[16, 256]``, a prefill's ``[512, 256]``
+    and a wave's read ``[16 x 640, 256]`` (bucket 256 = 4 kv heads x 64),
+    int8 and int4, each held to its plain version and timed: ``ms`` the
+    kernel's device time a launch (``torch.profiler``), ``wrapper_ms`` the
+    wrapper's time a call back to back.  ``launches`` is the kernel's
+    count on phase 4h's run at that width (the write rows share it)."""
+    from repro_torch.core.quantization import uniform_levels
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dequantize import dequantize_blocks
+    from repro_torch.kernels.quantize import quantize_blocks
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(256)
+    rows = []
+    for bits in (8, 4):
+        s = 15 if bits == 8 else 5
+        lv = uniform_levels(s, dev)
+        kw = dict(num_symbols=s + 2, q_is_inf=True, bits=bits)
+        counts = runs[str(bits)]["counts"]
+        for what, n_rows in (("write", 16), ("prefill", 512)):
+            x = torch.randn((n_rows, 256), generator=gen, device=dev)
+            x[3] = 0.0
+            r = torch.rand((n_rows, 256), generator=gen, device=dev)
+            wrapper, got = _time_ms(torch, lambda: quantize_blocks(x, r, lv, **kw), 200)
+            ms = device_ms(torch, lambda: quantize_blocks(x, r, lv, **kw), "quantize", 50)
+            plain, want = _time_ms(torch, lambda: ref.quantize_blocks_plain(x, r, lv, **kw),
+                                   20)
+            err = _deq_err(torch, f"kv {what} int{bits}", got, want, lv, bits)
+            n = n_rows * 256
+            row = kernel_row(f"quantize_blocks/kv-{what}-int{bits}", counts["quantize_blocks"],
+                             ms, plain, max(err, errs["quantize_blocks"]),
+                             8 * n + n * bits // 8 + 4 * n_rows, n * (10 + 2 * s),
+                             f"{n_rows} x 256, int{bits}, the KV-cache {what}")
+            row["wrapper_ms"] = wrapper
+            log(f"    device {ms:.5f} ms vs wrapper {wrapper:.5f} ms a call")
+            rows.append(row)
+        n_rows = 16 * 640
+        pk, nk = quantize_blocks(torch.randn((n_rows, 256), generator=gen, device=dev),
+                                 torch.rand((n_rows, 256), generator=gen, device=dev), lv, **kw)
+        wrapper, got = _time_ms(torch, lambda: dequantize_blocks(pk, nk, lv, num_symbols=s + 2,
+                                                                 bits=bits), 200)
+        ms = device_ms(torch, lambda: dequantize_blocks(pk, nk, lv, num_symbols=s + 2,
+                                                        bits=bits), "dequantize", 50)
+        plain, want = _time_ms(torch, lambda: ref.dequantize_blocks_plain(pk, nk, lv,
+                                                                          bits=bits), 20)
+        err = _close(torch, f"kv read int{bits}", got, want)
+        n = n_rows * 256
+        row = kernel_row(f"dequantize_blocks/kv-read-int{bits}", counts["dequantize_blocks"],
+                         ms, plain, max(err, errs["dequantize_blocks"]),
+                         n * bits // 8 + 4 * n_rows + 4 * n, 3 * n,
+                         f"{n_rows} x 256, int{bits}, the KV-cache read of a wave")
+        row["wrapper_ms"] = wrapper
+        log(f"    device {ms:.5f} ms vs wrapper {wrapper:.5f} ms a call")
+        rows.append(row)
+    return rows
+
+
 def card_vs_cpu(torch) -> None:
     """Reduced tinyllama, same weights and noise: 2 de steps on the card
     (CUDA kernels) vs on the CPU (plain versions), exact exchange, int8
@@ -2336,9 +2662,18 @@ def main() -> None:
     launches["quantize_dequantize_segments"] += toy_launches
     log(f"phase 4e took {time.perf_counter() - t0:.1f} s")
 
+    # phase 4h: the serving path at full width, and kernels 1 and 3 at its shapes
+    t0 = time.perf_counter()
+    serve = serve_path(torch)
+    serve_rows = serve_kernel_rows(torch, serve, errs)
+    log(f"phase 4h took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # phase 5: kernel times at the main-path shapes
     t0 = time.perf_counter()
-    rows = kernel_times(torch, launches, errs, shapes, int_ops, qada) + gan_rows + [toy_row]
+    rows = (kernel_times(torch, launches, errs, shapes, int_ops, qada) + gan_rows + [toy_row]
+            + serve_rows)
     log(f"phase 5 took {time.perf_counter() - t0:.1f} s")
 
     print(card, flush=True)  # again, beside the results (a log's tail keeps it)

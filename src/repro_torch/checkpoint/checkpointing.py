@@ -7,8 +7,9 @@ strings (``embed``, ``layers/0/w``, ``.anchor/embed``, ``.count``, the
 six children of ``ExchangeState`` as ``0`` .. ``5``), the meta holds the
 same map (step, per-tree keys / dtypes / shapes / crc32 / treedef string,
 extra) and is encoded byte for byte as ``msgpack.packb`` encodes it, by a
-small codec of this module (maps, strings, ints and lists, the subset
-the meta uses): the card's machine has no ``msgpack``.
+small codec of this module (maps, strings, ints, floats, None, bools
+and lists, the subset the metas use; the serve engine's snapshot extra
+holds the last four): the card's machine has no ``msgpack``.
 
 Trees are built the reference's way: dicts (flattened by sorted key),
 tuples and lists, None, NamedTuples (``QGenXOptState``, ``AdamState``:
@@ -68,12 +69,19 @@ class CheckpointStructureError(CheckpointError):
 
 
 def packb(obj) -> bytes:
-    """``msgpack.packb(obj)`` for maps, strings, ints and lists / tuples
-    (the same bytes)."""
+    """``msgpack.packb(obj)`` for maps, strings, ints, floats (as float 64),
+    None, bools and lists / tuples (the same bytes)."""
     out = bytearray()
 
     def rec(o):
-        if isinstance(o, (int, np.integer)) and not isinstance(o, bool):
+        if o is None:
+            out.append(0xC0)
+        elif isinstance(o, (bool, np.bool_)):
+            out.append(0xC3 if o else 0xC2)
+        elif isinstance(o, (float, np.floating)):
+            out.append(0xCB)
+            out.extend(struct.pack(">d", float(o)))
+        elif isinstance(o, (int, np.integer)):
             o = int(o)
             if 0 <= o < 0x80:
                 out.append(o)
@@ -138,14 +146,15 @@ def _header(out: bytearray, n: int, fix: int, tag16: int, tag32: int) -> None:
         out.extend(struct.pack(">I", n))
 
 
+_SCALARS = {0xC0: None, 0xC2: False, 0xC3: True}
 _INTS = {0xCC: ">B", 0xCD: ">H", 0xCE: ">I", 0xCF: ">Q",
          0xD0: ">b", 0xD1: ">h", 0xD2: ">i", 0xD3: ">q"}
 
 
 def unpackb(data: bytes):
     """``msgpack.unpackb(data)`` for what :func:`packb` writes (maps with
-    str keys, lists, strings, ints); ``ValueError`` on anything else, on
-    truncation and on trailing bytes."""
+    str keys, lists, strings, ints, floats, None, bools); ``ValueError`` on
+    anything else, on truncation and on trailing bytes."""
     pos = 0
 
     def take(n):
@@ -168,6 +177,10 @@ def unpackb(data: bytes):
             return [rec() for _ in range(t & 0x0F)]
         if 0x80 <= t <= 0x8F:
             return rmap(t & 0x0F)
+        if t in _SCALARS:
+            return _SCALARS[t]
+        if t == 0xCB:
+            return struct.unpack(">d", take(8))[0]
         if t in _INTS:
             fmt = _INTS[t]
             return struct.unpack(fmt, take(struct.calcsize(fmt)))[0]

@@ -25,6 +25,13 @@ port's state on a device.  :func:`qgenx_state_to_jax` /
 :class:`~repro_torch.core.extragradient.QGenXState` the same two ways
 (its nine fields; ``t`` a host int in the port, an int32 0-d array in the
 reference).
+
+The serving path's paged arena crosses too: :func:`arena_from_jax` takes
+the reference's arena (``repro.serve.kv_cache.init_paged_cache``'s dict,
+numpy leaves ``[Lj, num_pages, ...]``) to the port's tensors, adding the
+port's sink page of dropped writes after the real pages
+(:mod:`repro_torch.serve.kv_cache`), and :func:`arena_to_jax` gives the
+reference's dict back without it.
 """
 
 from __future__ import annotations
@@ -222,3 +229,26 @@ def qgenx_state_from_jax(tree, device) -> QGenXState:
     t = vals.pop("t")
     t = int(np.asarray(t.cpu() if isinstance(t, torch.Tensor) else t))
     return QGenXState(t=t, **{f: _tensor(v, device) for f, v in vals.items()})
+
+
+# ---------------------------------------------------------------------------
+# The serving path's paged arena
+# ---------------------------------------------------------------------------
+
+
+def arena_from_jax(arena, device) -> dict:
+    """The reference's paged arena (name -> ``[Lj, P, ...]`` array) -> the
+    port's (name -> ``[Lj, P + 1, ...]`` tensor on ``device``, the sink
+    page zero)."""
+    out = {}
+    for name, a in arena.items():
+        t = torch.from_numpy(np.array(a))
+        sink = torch.zeros((t.shape[0], 1, *t.shape[2:]), dtype=t.dtype)
+        out[name] = torch.cat([t, sink], dim=1).to(device)
+    return out
+
+
+def arena_to_jax(cache: dict) -> dict:
+    """The port's arena -> the reference's dict of numpy arrays (the sink
+    page dropped)."""
+    return {name: t[:, :-1].detach().cpu().numpy() for name, t in cache.items()}

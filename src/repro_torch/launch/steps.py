@@ -316,3 +316,26 @@ def make_train_step(model, opt_cfg: OptimizerConfig, exchange: Exchange, *,
                                      "nonfinite": nonfinite, "alive": alive}
 
     return step
+
+
+def make_prefill_step(model):
+    """Forward-only (inference prefill): tokens [B, S] -> logits."""
+
+    @torch.no_grad()
+    def prefill(tokens: torch.Tensor) -> torch.Tensor:
+        return model(tokens)
+
+    return prefill
+
+
+def make_serve_step(model):
+    """One greedy decode step against a dense KV cache
+    (:func:`repro_torch.models.transformer.decode_step`):
+    ``(cache, token, pos) -> (next_token, logits, cache)``."""
+    from repro_torch.models.transformer import decode_step
+
+    def serve_step(cache: dict, token: torch.Tensor, pos: int):
+        logits, cache = decode_step(model, cache, token, pos)
+        return torch.argmax(logits, dim=-1).to(torch.int32), logits, cache
+
+    return serve_step

@@ -103,3 +103,81 @@ def attention_apply(p, cfg: ModelConfig, x: torch.Tensor,
     k = apply_rope(k, cos, sin)
     out = full_attention(q, _repeat_kv(k, H), _repeat_kv(v, H), causal=True)
     return torch.einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
+
+
+# -- decode path (one new token against a KV cache) -------------------------
+
+
+def attention_prefill_kv(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    """Project and rope K/V for cache population: k, v [B, S, KV, hd]."""
+    hd = cfg.resolved_head_dim
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+    return apply_rope(k, cos, sin), v
+
+
+def _project_decode(p, cfg: ModelConfig, x: torch.Tensor, cos, sin):
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k_new = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v_new = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    return apply_rope(q, cos, sin), apply_rope(k_new, cos, sin), v_new
+
+
+def _grouped_attend(p, cfg: ModelConfig, x, q, k_all, v_all, valid):
+    """Grouped-query attention of one new token (no kv-head repeat):
+    q [B, 1, H, hd], k/v [B, S, KV, hd], valid [B, S] -> [B, 1, D]."""
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    B, KV = x.shape[0], k_all.shape[2]
+    qg = q.reshape(B, 1, KV, H // KV, hd)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k_all.float()) * (hd**-0.5)
+    logits = torch.where(valid[:, None, None, None, :], logits,
+                         torch.full((), -1e30, device=logits.device))
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w, v_all.float()).reshape(B, 1, H, hd)
+    return torch.einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
+
+
+def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, pos: int,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor) -> torch.Tensor:
+    """One-token decode against a dense cache: x [B, 1, D], ``pos`` the
+    shared position; writes this token's K/V at ``pos`` of k_cache /
+    v_cache [B, S, KV, hd] (in place) and attends over positions <= pos.
+    Returns [B, 1, D]."""
+    hd, S = cfg.resolved_head_dim, k_cache.shape[1]
+    cos, sin = rope_cos_sin(torch.tensor([pos], device=x.device), hd, cfg.rope_theta)
+    q, k_new, v_new = _project_decode(p, cfg, x, cos[None], sin[None])
+    k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
+    valid = (torch.arange(S, device=x.device) <= pos)[None].expand(x.shape[0], S)
+    return _grouped_attend(p, cfg, x, q, k_cache, v_cache, valid)
+
+
+def attention_decode_paged(p, cfg: ModelConfig, pc, cache: dict, l: int, x: torch.Tensor,
+                           pos: torch.Tensor, page_table: torch.Tensor, noise):
+    """One-token decode against the paged quantized cache (port of the
+    reference's ``attention_decode_paged``).
+
+    Positions are per slot (``pos`` [B]), the history comes back
+    dequantized from the arena through ``page_table`` [B, blocks_per_seq]
+    (-1 = unmapped), and the current token rides as an always-valid extra
+    key, so the attention never sees its own quantization noise; its K/V
+    are written after the read.  Slots whose row is all -1 are inert:
+    their writes drop and the extra key keeps their softmax finite.
+    Returns [B, 1, D]; ``cache`` is updated in place."""
+    from repro_torch.serve import kv_cache as KVC  # lazy: serve imports configs only
+
+    cos, sin = rope_cos_sin(pos[:, None], cfg.resolved_head_dim, cfg.rope_theta)
+    q, k_new, v_new = _project_decode(p, cfg, x, cos, sin)
+    k_hist, v_hist = KVC.read_kv(cache, pc, l, page_table)  # [B, T, KV, hd] f32
+    T = k_hist.shape[1]
+    key_pos = torch.arange(T, device=x.device)[None, :]
+    mapped = torch.repeat_interleave(page_table >= 0, pc.page_size, dim=1)
+    valid = (key_pos < pos[:, None]) & mapped
+    k_all = torch.cat([k_hist, k_new.float()], dim=1)
+    v_all = torch.cat([v_hist, v_new.float()], dim=1)
+    valid = torch.cat([valid, torch.ones_like(valid[:, :1])], dim=1)
+    out = _grouped_attend(p, cfg, x, q, k_all, v_all, valid)
+    page_w = torch.gather(page_table, 1, (pos // pc.page_size)[:, None].long())[:, 0]
+    KVC.write_token(cache, pc, l, k_new[:, 0], v_new[:, 0], page_w, pos % pc.page_size, noise)
+    return out

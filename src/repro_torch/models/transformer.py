@@ -7,6 +7,12 @@ the reference scans over that axis), under ``layers.0`` (one pattern
 period for a dense stack), beside ``embed`` and ``unembed`` (f32),
 ``ln_f``.  :meth:`DenseDecoder.param_leaves` lists them in JAX flatten
 order.
+
+Decode (ported with the serving path): :func:`init_cache` /
+:func:`decode_step` over a dense ``[L, B, S, KV, hd]`` cache, and the
+paged quantized cache's :func:`prefill_paged` / :func:`decode_step_paged`
+(:mod:`repro_torch.serve.kv_cache`).  They take the model and write
+their caches in place.
 """
 
 from __future__ import annotations
@@ -128,3 +134,123 @@ class DenseDecoder(nn.Module):
         if cfg.tie_embeddings:
             return torch.einsum("bsd,vd->bsv", x.float(), self.embed)
         return x.float() @ self.unembed
+
+
+# ---------------------------------------------------------------------------
+# Decode: the dense KV cache, and the paged cache of the serving path
+# ---------------------------------------------------------------------------
+
+
+def layer_pattern(cfg: ModelConfig):
+    """(period, flags, n_periods, n_rem); flags[j] = (is_moe, is_global).
+
+    The reference's pattern over the fields the port's config has: no
+    window and no experts, so every layer is a dense global-attention
+    layer and the period is 1."""
+    return 1, ((False, True),), cfg.num_layers, 0
+
+
+def paged_eligible(cfg: ModelConfig) -> bool:
+    """Architectures the paged quantized cache serves: pure-attention
+    decoders with per-head K/V (every config the port has)."""
+    return cfg.arch_type == "dense"
+
+
+def _layer_params(model: DenseDecoder, l: int) -> dict:
+    return model.layers[0].layer(l)
+
+
+def _embed(model: DenseDecoder, token: torch.Tensor) -> torch.Tensor:
+    cfg = model.cfg
+    return model.embed[token].to(model_dtype(cfg)) * (cfg.d_model**0.5)
+
+
+def _unembed(model: DenseDecoder, x: torch.Tensor) -> torch.Tensor:
+    cfg = model.cfg
+    x = L.norm_apply({"scale": model.ln_f.scale}, x, cfg.norm_type)
+    if cfg.tie_embeddings:
+        return torch.einsum("bsd,vd->bsv", x.float(), model.embed)
+    return x.float() @ model.unembed
+
+
+def _mlp_residual(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    h = L.norm_apply(p["ln_mlp"], x, cfg.norm_type)
+    return x + L.mlp_apply(p["mlp"], h, cfg.mlp_type)
+
+
+@torch.no_grad()
+def forward_with_kv(model: DenseDecoder, tokens: torch.Tensor):
+    """Full-sequence prefill that also returns every layer's roped K/V:
+    tokens [B, S] -> (logits [B, S, V], ((k, v) [B, S, KV, hd] per layer))
+    (the K/V :func:`decode_step` would have written token by token)."""
+    cfg = model.cfg
+    B, S = tokens.shape
+    x = _embed(model, tokens)
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    kvs = []
+    for l in range(cfg.num_layers):
+        p = _layer_params(model, l)
+        h = L.norm_apply(p["ln_attn"], x, cfg.norm_type)
+        kvs.append(L.attention_prefill_kv(p["attn"], cfg, h, positions))
+        x = block_apply(p, cfg, x, positions)
+    return _unembed(model, x), tuple(kvs)
+
+
+@torch.no_grad()
+def prefill_paged(model: DenseDecoder, pc, cache: dict, tokens: torch.Tensor,
+                  pages: torch.Tensor, noise):
+    """Forward whole prompts and write every layer's K/V into the paged
+    arena (in place).  tokens [B, S] with S == pages.shape[1] * page_size
+    (padded); pages [B, nblk]; ``noise`` the cache noise of these rows.
+    Returns (logits [B, S, V], cache)."""
+    from repro_torch.serve import kv_cache as KVC
+
+    logits, kvs = forward_with_kv(model, tokens)
+    for l, (k, v) in enumerate(kvs):
+        KVC.write_prompt(cache, pc, l, k, v, pages, noise)
+    return logits, cache
+
+
+@torch.no_grad()
+def decode_step_paged(model: DenseDecoder, pc, cache: dict, token: torch.Tensor,
+                      pos: torch.Tensor, page_table: torch.Tensor, noise):
+    """Packed-batch paged decode: token / pos [B] (per-slot positions),
+    page_table [B, blocks_per_seq], ``noise`` the cache noise of this wave
+    -> (logits [B, V], cache written in place)."""
+    cfg = model.cfg
+    x = _embed(model, token)[:, None, :]
+    for l in range(cfg.num_layers):
+        p = _layer_params(model, l)
+        h = L.norm_apply(p["ln_attn"], x, cfg.norm_type)
+        x = x + L.attention_decode_paged(p["attn"], cfg, pc, cache, l, h, pos, page_table,
+                                         noise)
+        x = _mlp_residual(p, cfg, x)
+    return _unembed(model, x)[:, 0], cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
+    """Dense decode state: k, v [L, B, max_len, KV, hd] in the model dtype."""
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    dt = model_dtype(cfg)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def decode_block(p, cfg: ModelConfig, x: torch.Tensor, pos: int, layer_cache: dict):
+    """One layer of dense decode; ``layer_cache`` {"k", "v"} [B, S, KV, hd]
+    is written in place.  Returns (x, layer_cache)."""
+    h = L.norm_apply(p["ln_attn"], x, cfg.norm_type)
+    x = x + L.attention_decode(p["attn"], cfg, h, pos, layer_cache["k"], layer_cache["v"])
+    return _mlp_residual(p, cfg, x), layer_cache
+
+
+@torch.no_grad()
+def decode_step(model: DenseDecoder, cache: dict, token: torch.Tensor, pos: int):
+    """token [B], pos the shared position -> (logits [B, V], cache written
+    in place)."""
+    cfg = model.cfg
+    x = _embed(model, token)[:, None, :]
+    for l in range(cfg.num_layers):
+        x, _ = decode_block(_layer_params(model, l), cfg, x, pos,
+                            {"k": cache["k"][l], "v": cache["v"][l]})
+    return _unembed(model, x)[:, 0], cache

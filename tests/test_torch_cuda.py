@@ -409,3 +409,47 @@ def test_nccl_exchange_matches_gloo(tmp_path):
                 np.testing.assert_array_equal(got[i][k], want[i][k])
             else:
                 np.testing.assert_allclose(got[i][k], want[i][k], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("rows", [16, 16 * 640])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_kv_cache_kernels_at_bucket_256(dev, bits, rows):
+    """Kernels 1 and 3 at the paged KV-cache's shapes (bucket 256: tinyllama's
+    4 kv heads x 64; 16 decode rows a write, 16 x 640 rows a read), with a
+    zero row: the writes and reads of ``repro_torch.serve.kv_cache`` on the
+    card launch exactly these and equal their plain versions."""
+    from repro_torch.serve import kv_cache
+
+    s = 15 if bits == 8 else 5
+    lv = uniform_levels(s, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(rows + bits)
+    x = torch.randn((rows, 256), generator=gen, device=dev) * 2
+    x[3] = 0
+    r = torch.rand((rows, 256), generator=gen, device=dev)
+    pk, nk = quantize_blocks(x, r, lv, num_symbols=s + 2, q_is_inf=True, bits=bits)
+    pp, np_ = ref.quantize_blocks_plain(x, r, lv, num_symbols=s + 2, q_is_inf=True, bits=bits)
+    assert torch.equal(pk, pp) and same(nk, np_) and float(nk[3]) == 0.0
+    dk = dequantize_blocks(pk, nk, lv, num_symbols=s + 2, bits=bits)
+    assert close(dk, ref.dequantize_blocks_plain(pk, nk, lv, bits=bits))
+    assert not dk[3].any()
+    # through the cache: one token write and one read of a [1, 2]-page table
+    from repro_torch.configs import get_config
+
+    pc = kv_cache.make_paged_cache_config(get_config("tinyllama-1.1b"), f"int{bits}",
+                                          16, 4, 2)
+    cache = kv_cache.init_paged_cache(pc, dev)
+    before = cuda.launch_counts()
+    k_t = x[:2].reshape(2, 4, 64)
+    noise = kv_cache.KeyedNoise([1, 2], [0, 17], kv_cache.DECODE, pc.num_layers)
+    kv_cache.write_token(cache, pc, 0, k_t, k_t, torch.tensor([0, -1], device=dev),
+                         torch.tensor([0, 1], device=dev), noise)
+    k, _ = kv_cache.read_kv(cache, pc, 0, torch.tensor([[0, -1]], device=dev))
+    after = cuda.launch_counts()
+    assert after["quantize_blocks"] - before["quantize_blocks"] == 2
+    assert after["dequantize_blocks"] - before["dequantize_blocks"] == 2
+    rr = noise.draw(0, 0, (2, 256), dev)
+    pq, nq = ref.quantize_blocks_plain(k_t.reshape(2, 256), rr, lv, num_symbols=s + 2,
+                                       q_is_inf=True, bits=bits)
+    want = ref.dequantize_blocks_plain(pq, nq, lv, bits=bits)[0].reshape(4, 64)
+    assert close(k[0, 0], want) and not k[0, 1:].any()
