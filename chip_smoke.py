@@ -57,7 +57,7 @@ imports only ``repro_torch`` (from ``src/`` beside this file) and:
       reduced-size run on the card is then held against the same run on
       the CPU (same weights, exact exchange; int8 with host noise and
       with the device PRNG from the same seeds);
-   c. the local-update regime at the same width but 16 of the 22 layers
+   c. the local-update regime at the same width but 10 of the 22 layers
       (the depth cut keeps the script's time; the phase is checkpoint
       I/O): 4 qgenx ``de`` int8
       two_phase steps with ``sync_every=2``, ``recenter_every=4`` and a
@@ -141,6 +141,23 @@ imports only ``repro_torch`` (from ``src/`` beside this file) and:
       two_phase logit exchange at K = 1 (kernels 1-3 on the logits);
       then kernels 1 and 3 timed at the cache's shapes (``serve_path``,
       ``serve_kernel_rows``: the ``kv-*`` rows, device and wrapper time);
+   i. the other dense families at full width (``archs_train``,
+      ``archs_serve``): qwen3-4b (qk-norm, GQA 32 / 8, head_dim 128, vocab
+      151936) trained through ``repro_torch.launch.train.run`` at 7 of its
+      36 layers (tinyllama's buffer size; the peak below 70 GB), bf16
+      layers, 3 qgenx ``de`` int8 two_phase steps (finite losses, the analytic
+      ``wire_bytes``, kernels 1-3 six times each); then served through
+      ``repro_torch.launch.serve.run``, f32: gemma-2b whole at ``--kv-bits
+      8`` and qwen3-4b whole at ``--kv-bits 4`` (16 requests of 512 + 64
+      tokens), and gemma3-27b at 12 of its 62 layers (10 local, 2 global)
+      at ``--kv-bits mixed`` with 8 prompts of 1536 tokens, past its
+      1024-token window (the segments' bits, kernel 1 and 3's launches
+      by bits), and 2 requests at ``--kv-bits 32`` whose tokens equal a
+      full forward's argmax and whose cached K/V, every layer, equal
+      ``forward_with_kv``'s within 1e-4; each cut is logged as a
+      ``reduced:`` line.  Kernels 1-3 are then timed at qwen3-4b's buffer
+      (the ``qwen3-buffer`` rows) and kernels 1 and 3 at the 1024- and
+      2048-feature cache shapes (the ``-f1024`` / ``-f2048`` rows);
 5. runs each kernel at its main-path shape (the flat exchange buffer of
    tinyllama-1.1b, 2,148,532 rows x 512): kernels 1, 2, 3 in int8 as
    two_phase chains them, kernels 1 and 4 in int4 as gather does, and
@@ -904,9 +921,10 @@ def compress_bytes(ex, shapes) -> float:
 LOCAL_STEPS, SYNC_EVERY, RECENTER_EVERY, CKPT_EVERY = 4, 2, 4, 2
 RESUME_LOSS_RTOL = 1e-6  # see local_update_path
 # phase 4c's depth: its time is the checkpoints' I/O (five 11.3 GB saves
-# and restores at ~37 s each at 22 layers); cut to 16 of 22 layers so the
-# whole script keeps its time with phase 4h (full width) added
-LOCAL_UPDATE_LAYERS = 16
+# and restores at ~37 s each at 22 layers); cut to 10 of 22 layers so the
+# whole script keeps its time with phases 4h and 4i (full width) added
+# (~226 s at 16 layers on an H100 80GB HBM3)
+LOCAL_UPDATE_LAYERS = 10
 
 
 def _leaf_crcs(trees) -> dict:
@@ -1875,17 +1893,18 @@ SERVE_GAP_TOL = 1e-3
 CACHE_KERNELS = ("quantize_blocks", "dequantize_blocks")
 
 
-def _serve_args(*extra, reduced=False, device="cuda"):
+def _serve_args(*extra, reduced=False, device="cuda", base=SERVE_ARGV):
     from repro_torch.launch import serve
 
-    argv = list(SERVE_ARGV) + list(extra) + ["--device", device]
+    argv = list(base) + list(extra) + ["--device", device]
     return serve.parser().parse_args(argv + (["--reduced"] if reduced else []))
 
 
-def _serve_run(torch, args, tag, counted=True):
-    """One ``repro_torch.launch.serve.run``: the launch counts reset just
-    before and read just after; returns its dict with ``counts``, ``peak``,
-    the per-wave and per-prefill seconds and ``tok_s``."""
+def _serve_run(torch, args, tag, counted=True, phase="4h", config=None):
+    """One ``repro_torch.launch.serve.run`` (``config`` replaces the
+    model config of ``--arch``): the launch counts reset just before and
+    read just after; returns its dict with ``counts``, ``peak``, the
+    per-wave and per-prefill seconds and ``tok_s``."""
     from repro_torch.kernels import cuda
     from repro_torch.launch import serve
 
@@ -1895,7 +1914,7 @@ def _serve_run(torch, args, tag, counted=True):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     cuda.reset_launch_counts()
-    out = serve.run(args, say=lines.append)
+    out = serve.run(args, say=lines.append, config=config)
     counts = cuda.launch_counts()
     out["peak"] = torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0
     eng = out["engine"]
@@ -1909,7 +1928,7 @@ def _serve_run(torch, args, tag, counted=True):
         if not line.startswith(("[serve]   step", "[serve] result")):
             log(f"    {line}")
     st = eng.sched.stats
-    log(f"  phase 4h {tag}: {out['tokens']} tokens, {eng.sched.decode_steps} waves, "
+    log(f"  phase {phase} {tag}: {out['tokens']} tokens, {eng.sched.decode_steps} waves, "
         f"{len(pre)} prefills in {out['wall_s']:.3f} s: {out['tok_s']:.1f} tok/s; prefill "
         f"{out['prefill_ms']:.2f} ms, decode {out['wave_ms']:.2f} ms a wave (median; "
         f"{1e3 * waves[0]:.2f}-{1e3 * waves[-1]:.2f}); peak {out['peak']} B; cache "
@@ -1923,12 +1942,12 @@ def _serve_run(torch, args, tag, counted=True):
             want1 = want3 = 0
         got = (counts["quantize_blocks"], counts["dequantize_blocks"])
         if got != (want1, want3) or any(counts[k] for k in counts if k not in CACHE_KERNELS):
-            fail(f"phase 4h {tag}: launches {counts}, want kernel 1 {want1} (2 x "
+            fail(f"phase {phase} {tag}: launches {counts}, want kernel 1 {want1} (2 x "
                  f"{eng.pc.num_layers} a wave and a prefill) and kernel 3 {want3}")
     return out
 
 
-def _check_fp32_tokens(torch, run) -> int:
+def _check_fp32_tokens(torch, run, phase="4h") -> int:
     """Every fp32 paged request's tokens against a full forward's argmax
     over its prompt + generated tokens; a differing token must be a near
     tie (top two within SERVE_GAP_TOL).  Returns the near ties seen."""
@@ -1945,7 +1964,7 @@ def _check_fp32_tokens(torch, run) -> int:
                     top = torch.topk(logits[t], 2).values
                     gap = float(top[0] - top[1])
                     if gap >= SERVE_GAP_TOL:
-                        fail(f"phase 4h fp32: request {rid} token {t} is {b}, the full "
+                        fail(f"phase {phase} fp32: request {rid} token {t} is {b}, the full "
                              f"forward's argmax {a} (gap {gap})")
                     ties += 1
     return ties
@@ -2111,10 +2130,22 @@ def serve_kernel_rows(torch, runs: dict, errs: dict) -> list:
     """Kernels 1 and 3 at the shapes the cache gives them on phase 4h's
     path: a decode wave's write ``[16, 256]``, a prefill's ``[512, 256]``
     and a wave's read ``[16 x 640, 256]`` (bucket 256 = 4 kv heads x 64),
-    int8 and int4, each held to its plain version and timed: ``ms`` the
-    kernel's device time a launch (``torch.profiler``), ``wrapper_ms`` the
-    wrapper's time a call back to back.  ``launches`` is the kernel's
-    count on phase 4h's run at that width (the write rows share it)."""
+    int8 and int4 (``kv_kernel_rows``).  ``launches`` is the kernel's count
+    on phase 4h's run at that width (the write rows share it)."""
+    launches = {bits: (runs[str(bits)]["counts"]["quantize_blocks"],
+                       runs[str(bits)]["counts"]["dequantize_blocks"]) for bits in (8, 4)}
+    return kv_kernel_rows(torch, 256, {"write": 16, "prefill": 512}, 16 * 640, launches, errs)
+
+
+def kv_kernel_rows(torch, feat: int, writes: dict, read_rows: int, launches: dict,
+                   errs: dict, suffix: str = "") -> list:
+    """Kernel 1 on the cache writes ``writes`` (name -> token rows) and
+    kernel 3 on a wave's read of ``read_rows`` token rows, ``feat`` features
+    a token (the bucket), int8 and int4, each held to its plain version and
+    timed: ``ms`` the kernel's device time a launch (``torch.profiler``),
+    ``wrapper_ms`` the wrapper's time a call back to back.  ``launches``
+    maps bits to (kernel 1's, kernel 3's) count on the path at that shape;
+    row names end in ``suffix``."""
     from repro_torch.core.quantization import uniform_levels
     from repro_torch.kernels import ref
     from repro_torch.kernels.dequantize import dequantize_blocks
@@ -2122,45 +2153,45 @@ def serve_kernel_rows(torch, runs: dict, errs: dict) -> list:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
-    gen.manual_seed(256)
+    gen.manual_seed(feat)
     rows = []
     for bits in (8, 4):
         s = 15 if bits == 8 else 5
         lv = uniform_levels(s, dev)
         kw = dict(num_symbols=s + 2, q_is_inf=True, bits=bits)
-        counts = runs[str(bits)]["counts"]
-        for what, n_rows in (("write", 16), ("prefill", 512)):
-            x = torch.randn((n_rows, 256), generator=gen, device=dev)
+        n_write, n_read = launches[bits]
+        for what, n_rows in writes.items():
+            x = torch.randn((n_rows, feat), generator=gen, device=dev)
             x[3] = 0.0
-            r = torch.rand((n_rows, 256), generator=gen, device=dev)
+            r = torch.rand((n_rows, feat), generator=gen, device=dev)
             wrapper, got = _time_ms(torch, lambda: quantize_blocks(x, r, lv, **kw), 200)
             ms = device_ms(torch, lambda: quantize_blocks(x, r, lv, **kw), "quantize", 50)
             plain, want = _time_ms(torch, lambda: ref.quantize_blocks_plain(x, r, lv, **kw),
                                    20)
-            err = _deq_err(torch, f"kv {what} int{bits}", got, want, lv, bits)
-            n = n_rows * 256
-            row = kernel_row(f"quantize_blocks/kv-{what}-int{bits}", counts["quantize_blocks"],
+            err = _deq_err(torch, f"kv {what} int{bits}{suffix}", got, want, lv, bits)
+            n = n_rows * feat
+            row = kernel_row(f"quantize_blocks/kv-{what}-int{bits}{suffix}", n_write,
                              ms, plain, max(err, errs["quantize_blocks"]),
                              8 * n + n * bits // 8 + 4 * n_rows, n * (10 + 2 * s),
-                             f"{n_rows} x 256, int{bits}, the KV-cache {what}")
+                             f"{n_rows} x {feat}, int{bits}, the KV-cache {what}")
             row["wrapper_ms"] = wrapper
             log(f"    device {ms:.5f} ms vs wrapper {wrapper:.5f} ms a call")
             rows.append(row)
-        n_rows = 16 * 640
-        pk, nk = quantize_blocks(torch.randn((n_rows, 256), generator=gen, device=dev),
-                                 torch.rand((n_rows, 256), generator=gen, device=dev), lv, **kw)
+        pk, nk = quantize_blocks(torch.randn((read_rows, feat), generator=gen, device=dev),
+                                 torch.rand((read_rows, feat), generator=gen, device=dev), lv,
+                                 **kw)
         wrapper, got = _time_ms(torch, lambda: dequantize_blocks(pk, nk, lv, num_symbols=s + 2,
                                                                  bits=bits), 200)
         ms = device_ms(torch, lambda: dequantize_blocks(pk, nk, lv, num_symbols=s + 2,
                                                         bits=bits), "dequantize", 50)
         plain, want = _time_ms(torch, lambda: ref.dequantize_blocks_plain(pk, nk, lv,
                                                                           bits=bits), 20)
-        err = _close(torch, f"kv read int{bits}", got, want)
-        n = n_rows * 256
-        row = kernel_row(f"dequantize_blocks/kv-read-int{bits}", counts["dequantize_blocks"],
+        err = _close(torch, f"kv read int{bits}{suffix}", got, want)
+        n = read_rows * feat
+        row = kernel_row(f"dequantize_blocks/kv-read-int{bits}{suffix}", n_read,
                          ms, plain, max(err, errs["dequantize_blocks"]),
-                         n * bits // 8 + 4 * n_rows + 4 * n, 3 * n,
-                         f"{n_rows} x 256, int{bits}, the KV-cache read of a wave")
+                         n * bits // 8 + 4 * read_rows + 4 * n, 3 * n,
+                         f"{read_rows} x {feat}, int{bits}, the KV-cache read of a wave")
         row["wrapper_ms"] = wrapper
         log(f"    device {ms:.5f} ms vs wrapper {wrapper:.5f} ms a call")
         rows.append(row)
@@ -2218,8 +2249,310 @@ def card_vs_cpu(torch) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 4i: the other dense families (gemma-2b, qwen3-4b, gemma3-27b)
+# ---------------------------------------------------------------------------
+
+# (a)'s depth: qwen3-4b's 36 layers cut to 7, an exchange buffer of
+# 1.1e9 coordinates (tinyllama-1.1b's size, at which the plain versions'
+# full-buffer comparisons fit beside it); the step's peak is 30.4 GB on an
+# H100 80GB HBM3 (73.0 GB at 8 layers while a reference cycle in
+# ``core/tree.py`` held each step's garbage until the cyclic gc ran)
+ARCH_TRAIN_LAYERS = 7
+# (d)'s depth: gemma3-27b's 62 layers cut to two periods of its 5:1
+# local:global pattern (~6.4e9 parameters, ~26 GB in f32)
+GEMMA3_LAYERS = 12
+ARCH_SERVE_ARGV = ("--batch", "16", "--requests", "16", "--prompt-len", "512", "--gen", "64",
+                   "--page-size", "16")
+# prompts past gemma3's 1024-token window, so the local layers mask keys
+GEMMA3_SERVE_ARGV = ("--arch", "gemma3-27b", "--batch", "8", "--requests", "8",
+                     "--prompt-len", "1536", "--gen", "64", "--page-size", "16")
+
+
+def _bits_tally(module, name: str):
+    """Wrap ``module.name`` (a kernel wrapper taking ``bits=``) so that its
+    calls are counted by bits; returns (the tally, a function that undoes
+    the wrap).  The wrapper's own launch count is untouched."""
+    orig = getattr(module, name)
+    tally = {4: 0, 8: 0}
+
+    def counted(*a, **kw):
+        tally[kw["bits"]] += 1
+        return orig(*a, **kw)
+
+    setattr(module, name, counted)
+    return tally, lambda: setattr(module, name, orig)
+
+
+def archs_train(torch, batch: int, seq: int, reduced=False, device="cuda") -> dict:
+    """(a): qwen3-4b at full width (d_model 2560, 32 / 8 heads, head_dim 128,
+    d_ff 9728, vocab 151936, qk-norm, rope 1e6) cut to ARCH_TRAIN_LAYERS
+    layers, bf16 layers, batch x seq on one card: 3 qgenx ``de`` steps with
+    the int8 two_phase exchange and host noise through
+    ``repro_torch.launch.train.run``.  Every loss finite, ``wire_bytes`` the
+    analytic count of the gradient tree (q_norm / k_norm leaves included),
+    kernels 1-3 once an exchange and no other kernel.  Returns the counts,
+    step times, peak and the exchanged coordinates."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.exchange import make_exchange
+    from repro_torch.core.exchange_plan import size_of
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.train import build_exchange_config, run
+
+    full = get_config("qwen3-4b")
+    cfg = dataclasses.replace(full.reduced() if reduced else full,
+                              num_layers=ARCH_TRAIN_LAYERS)
+    log(f"  reduced: qwen3-4b num_layers {full.num_layers} -> {cfg.num_layers} at full width "
+        f"(a buffer of tinyllama's size; the peak below 70 GB; train phase only)")
+    args = _train_args(arch="qwen3-4b", dtype="float32" if reduced else "bfloat16",
+                       batch=batch, seq=seq, device=device, optimizer="qgenx", method="de",
+                       compression="int8", compress_mode="two_phase", steps=3)
+    shapes = []
+
+    def on_step(step, model, *_):
+        if not shapes:
+            shapes.extend(tuple(p.shape) for p in model.param_leaves())
+
+    gc.collect()
+    held = 0
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+    cuda.reset_launch_counts()
+    out = run(args, log=lambda m: log(f"    {m}"), config=cfg, on_step=on_step)
+    counts = cuda.launch_counts()
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    ex = make_exchange(build_exchange_config(args))
+    sizes = [size_of(s) for s in shapes]
+    calls = 2 * len(out["loss"])
+    want_wire = 2 * ex.compressor.wire_bytes_tree(sizes, 1, ex.cfg)
+    if not all(math.isfinite(v) for v in out["loss"]):
+        fail(f"phase 4i(a): non-finite loss {out['loss']}")
+    if any(w != want_wire for w in out["wire_bytes"]):
+        fail(f"phase 4i(a): wire_bytes {out['wire_bytes']} != analytic {want_wire}")
+    want = {k: calls if k in ("quantize_blocks", "dequant_reduce_requantize_blocks",
+                              "dequantize_blocks") else 0 for k in counts}
+    if device == "cuda" and counts != want:
+        fail(f"phase 4i(a): launches {counts} != {want}")
+    if peak - held > 70e9:
+        fail(f"phase 4i(a): the run's peak {peak - held} bytes above 70 GB ({held} "
+             f"held before it)")
+    log(f"  phase 4i(a) qwen3-4b de int8 two_phase ({sum(sizes)} coordinates): "
+        f"loss={out['loss']} wire_bytes={out['wire_bytes'][0]:.0f} step_s={out['step_s']} "
+        f"peak_bytes={peak} ({held} held before the run) "
+        f"launches={ {k: v for k, v in counts.items() if v} }")
+    return {"counts": counts, "step_s": out["step_s"], "peak": peak, "n_live": sum(sizes)}
+
+
+def archs_serve(torch, reduced=False, device="cuda") -> dict:
+    """(b)-(d): ``repro_torch.launch.serve`` at full width, f32, random
+    weights from seed 0, each run's model freed before the next:
+
+    (b) gemma-2b, all 18 layers, ``--kv-bits 8`` (ARCH_SERVE_ARGV);
+    (c) qwen3-4b, all 36 layers, ``--kv-bits 4``, the same traffic;
+    (d) gemma3-27b cut to GEMMA3_LAYERS layers (10 local, 2 global),
+        ``--kv-bits mixed`` (GEMMA3_SERVE_ARGV: prompts past the window):
+        the segment bits per layer ``layer_bit_policy``'s, kernel 1 launched
+        2 x (local layers) times a wave and a prefill at bits 4 and 2 x
+        (global layers) at bits 8, kernel 3 the same a wave; then 2
+        requests at ``--kv-bits 32`` whose tokens equal the full forward's
+        argmax but at near ties (banded prefill against windowed paged
+        decode).
+
+    Every request answers, every page is freed and the quantized caches
+    are below fp32.  Returns the runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import kv_cache as KVC
+
+    counted = device == "cuda"
+    kw = dict(reduced=reduced, device=device)
+    runs = {}
+    for tag, arch, bits in (("b", "gemma-2b", "8"), ("c", "qwen3-4b", "4")):
+        base = ARCH_SERVE_ARGV + ("--arch", arch)
+        if reduced:
+            base += ("--prompt-len", "96", "--gen", "8")
+        run = _serve_run(torch, _serve_args("--kv-bits", bits, base=base, **kw),
+                         f"({tag}) {arch} kv-bits {bits}", counted, phase="4i")
+        eng = run["engine"]
+        if len(run["out"]) != 16 or eng.allocator.n_free != eng.pc.num_pages:
+            fail(f"phase 4i({tag}) {arch}: {len(run['out'])} of 16 answered")
+        if eng.fp32_cache_bytes / eng.cache_bytes < {"8": 2.0, "4": 4.0}[bits]:
+            fail(f"phase 4i({tag}) {arch}: cache {eng.cache_bytes} B vs fp32 "
+                 f"{eng.fp32_cache_bytes} B")
+        run["engine"] = eng = None  # each run's peak its own
+        runs[tag] = run
+    full = get_config("gemma3-27b")
+    cfg = dataclasses.replace(full.reduced() if reduced else full, num_layers=GEMMA3_LAYERS)
+    log(f"  reduced: gemma3-27b num_layers {full.num_layers} -> {cfg.num_layers} at full "
+        f"width (two periods of 5 local : 1 global; ~{cfg.param_count() * 4 / 1e9:.1f} GB "
+        f"in f32)")
+    base = GEMMA3_SERVE_ARGV + (("--prompt-len", "96", "--gen", "8") if reduced else ())
+    want_bits = KVC.layer_bit_policy(cfg, "mixed")
+    n_local = want_bits.count(4)
+    if want_bits != (4,) * 5 + (8,) + (4,) * 5 + (8,):
+        fail(f"phase 4i(d): layer_bit_policy(mixed) = {want_bits}")
+    writes, undo_w = _bits_tally(KVC, "quantize_blocks")
+    reads, undo_r = _bits_tally(KVC, "dequantize_blocks")
+    try:
+        run = _serve_run(torch, _serve_args("--kv-bits", "mixed", base=base, **kw),
+                         "(d) gemma3-27b kv-bits mixed", counted, phase="4i", config=cfg)
+    finally:
+        undo_w()
+        undo_r()
+    eng = run["engine"]
+    got_bits = tuple(32 if seg.quant is None else seg.quant.bits
+                     for seg in eng.pc.segments for _ in range(seg.n))
+    waves, pre = eng.sched.decode_steps, len(eng.timing["prefill_s"])
+    want_w = {4: 2 * n_local * (waves + pre), 8: 2 * (cfg.num_layers - n_local) * (waves + pre)}
+    want_r = {4: 2 * n_local * waves, 8: 2 * (cfg.num_layers - n_local) * waves}
+    if got_bits != want_bits or writes != want_w or reads != want_r:
+        fail(f"phase 4i(d): segment bits {got_bits} (want {want_bits}); kernel 1 by bits "
+             f"{writes} (want {want_w}), kernel 3 {reads} (want {want_r})")
+    int8 = KVC.cache_bytes(KVC.make_paged_cache_config(cfg, "int8", eng.pc.page_size,
+                                                       eng.pc.num_pages, eng.pc.blocks_per_seq))
+    if (len(run["out"]) != 8 or eng.allocator.n_free != eng.pc.num_pages
+            or not eng.cache_bytes < int8):
+        fail(f"phase 4i(d): {len(run['out'])} of 8 answered, cache {eng.cache_bytes} B "
+             f"(all-int8 {int8} B)")
+    log(f"  phase 4i(d): segments {eng.pc.describe()}; kernel 1 by bits {writes}, kernel 3 by "
+        f"bits {reads}; cache {eng.cache_bytes} B vs all-int8 {int8} B")
+    run.update(engine=None, writes=writes, reads=reads, int8_bytes=int8)
+    eng = None
+    runs["d"] = run
+    fp32 = _serve_run(torch, _serve_args("--kv-bits", "32", "--requests", "2", "--batch", "2",
+                                         base=base, **kw),
+                      "(d) gemma3-27b kv-bits 32, 2 requests", counted, phase="4i", config=cfg)
+    if len(fp32["out"]) != 2:
+        fail(f"phase 4i(d) fp32: {len(fp32['out'])} of 2 answered")
+    fp32["near_ties"] = _check_fp32_tokens(torch, fp32, phase="4i(d)")
+    kv_err = _check_fp32_kv(torch, fp32)
+    log(f"  phase 4i(d) fp32: every token equals the full forward's argmax but "
+        f"{fp32['near_ties']} near ties (gap < {SERVE_GAP_TOL}); every layer's cached K/V "
+        f"within {kv_err:.3e} (relative) of the full forward's")
+    fp32["engine"] = None
+    runs["d-fp32"] = fp32
+    return runs
+
+
+# the fp32 arena's K/V against a full forward's: relative Frobenius error
+# a layer (f32 both ways, summed in other orders)
+SERVE_KV_RTOL = 1e-4
+
+
+def _check_fp32_kv(torch, run) -> float:
+    """Every fp32 request's cached K/V, every layer and written position
+    (the prompt's from the banded prefill, the rest from windowed paged
+    decode), against ``forward_with_kv`` over its prompt + generated
+    tokens: a local layer that attended outside its window shifts the
+    hidden state of every later layer.  Returns the worst relative
+    error."""
+    from repro_torch.models import transformer as T
+
+    eng, worst = run["engine"], 0.0
+    reqs = {s.req.rid: s.req for s in eng.sched.finished}
+    for rid, toks in run["out"].items():
+        seq = list(reqs[rid].prompt) + toks[:-1]
+        _, kvs = T.forward_with_kv(eng.model, torch.tensor([seq], device=eng.device))
+        pages = _request_pages(eng, rid)
+        for j, seg in enumerate(eng.pc.segments):
+            for i in range(seg.n):
+                for tag, name in enumerate(("k", "v")):
+                    got = eng.cache[f"seg{j}_{name}"][i, pages].flatten(0, 1)[:len(seq)]
+                    want = kvs[seg.start + i][tag][0]
+                    err = float((got - want).norm() / want.norm())
+                    worst = max(worst, err)
+                    if not err <= SERVE_KV_RTOL:
+                        fail(f"phase 4i(d) fp32: request {rid} layer {seg.start + i} {name} "
+                             f"relative error {err:.3e} against the full forward")
+    return worst
+
+
+def archs_buffer_rows(torch, train: dict, errs: dict) -> list:
+    """Kernels 1, 2 and 3 at the flat exchange buffer of (a)'s qwen3-4b
+    ([rows, 512], int8, q = inf) as the two_phase exchange chains them,
+    each held to its plain version on the same inputs and timed;
+    ``launches`` is (a)'s count."""
+    from repro_torch.core.quantization import uniform_levels
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dequant_reduce import dequant_reduce_requantize_blocks
+    from repro_torch.kernels.dequantize import dequantize_blocks
+    from repro_torch.kernels.quantize import quantize_blocks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    bucket, s, bits = 512, 15, 8
+    rows = -(-train["n_live"] // bucket)
+    n = rows * bucket
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    lv = uniform_levels(s, dev)
+    kw = dict(num_symbols=s + 2, q_is_inf=True, bits=bits)
+    out = []
+
+    def entry(name, ms, plain, err, nbytes, ops):
+        kernel = kernel_key(name)
+        out.append(kernel_row(name, train["counts"][kernel], ms, plain, max(err, errs[kernel]),
+                              nbytes, ops, f"{rows} x {bucket}, int8, qwen3-4b's buffer"))
+
+    x = torch.randn((rows, bucket), generator=gen, device=dev)
+    r = torch.rand((rows, bucket), generator=gen, device=dev)
+    ms, got = _time_ms(torch, lambda: quantize_blocks(x, r, lv, **kw), 10)
+    plain, want = _time_ms(torch, lambda: ref.quantize_blocks_plain(x, r, lv, **kw), 2)
+    del x
+    torch.cuda.empty_cache()
+    err = _deq_err(torch, "quantize int8 qwen3-4b buffer", got, want, lv, bits)
+    del want
+    entry("quantize_blocks/qwen3-buffer-int8", ms, plain, err,
+          4 * n + 4 * n + n + 4 * rows, n * (10 + 2 * s))
+    P, N = got[0].unsqueeze(0), got[1].unsqueeze(0)
+    del got
+    ms, got = _time_ms(torch, lambda: dequant_reduce_requantize_blocks(
+        P, N, lv, r, num_workers=1, **kw), 10)
+    plain, want = _time_ms(torch, lambda: ref.dequant_reduce_requantize_blocks_plain(
+        P, N, lv, r, **kw), 2)
+    del r, P, N
+    torch.cuda.empty_cache()
+    err = _deq_err(torch, "dequant_reduce_requantize qwen3-4b buffer", got, want, lv, bits)
+    del want
+    entry("dequant_reduce_requantize_blocks/qwen3-buffer", ms, plain, err,
+          n + 4 * rows + 4 * n + n + 4 * rows, n * (14 + 2 * s))
+    payload, norms = got
+    ms, got = _time_ms(torch, lambda: dequantize_blocks(payload, norms, lv, num_symbols=s + 2,
+                                                        bits=bits), 10)
+    plain, want = _time_ms(torch, lambda: ref.dequantize_blocks_plain(payload, norms, lv,
+                                                                      bits=bits), 2)
+    err = _close(torch, "dequantize qwen3-4b buffer", got, want)
+    entry("dequantize_blocks/qwen3-buffer", ms, plain, err, n + 4 * rows + 4 * n, 3 * n)
+    del payload, norms, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def archs_kernel_rows(torch, train: dict, serve: dict, errs: dict) -> list:
+    """Phase 4i's kernel rows: kernels 1-3 at (a)'s buffer, and kernels 1
+    and 3 at the cache's new widths: qwen3-4b's 1024 features (8 kv heads x
+    128; a wave's write [16, 1024], its read [16 x 576, 1024]) with (c)'s
+    int4 counts, and gemma3-27b's 2048 (16 x 128; [8, 2048] and
+    [8 x 1600, 2048]) with (d)'s counts by bits."""
+    c = serve["c"]["counts"]
+    rows = archs_buffer_rows(torch, train, errs)
+    rows += kv_kernel_rows(torch, 1024, {"write": 16}, 16 * 576,
+                           {8: (0, 0), 4: (c["quantize_blocks"], c["dequantize_blocks"])}, errs,
+                           suffix="-f1024")
+    d = serve["d"]
+    rows += kv_kernel_rows(torch, 2048, {"write": 8}, 8 * 1600,
+                           {b: (d["writes"][b], d["reads"][b]) for b in (8, 4)}, errs,
+                           suffix="-f2048")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 5: kernel times at the main-path shapes
 # ---------------------------------------------------------------------------
+
+
+DEVICE_MS_ATTEMPTS = 3  # see device_ms
 
 
 def _time_ms(torch, fn, reps: int):
@@ -2241,23 +2574,38 @@ def device_ms(torch, fn, kernel: str, reps: int) -> float:
     """The device time of one launch of ``kernel`` (a substring of the CUDA
     kernel's name): ``reps`` calls of ``fn`` under ``torch.profiler``, the
     kernel's device time summed by ``key_averages()`` over the launches the
-    profiler recorded (it may drop some), divided by their count."""
-    from torch.profiler import ProfilerActivity, profile
+    profiler recorded, divided by their count.
+
+    A profiler started cold drops the first launches it sees (CUPTI comes
+    up behind the host: 16-21 of 50 short launches were lost that way), so
+    the ``reps`` calls are the active step of a schedule whose warm-up step
+    makes the same calls unrecorded.  A measurement that still records
+    fewer than half the launches is taken again, up to
+    ``DEVICE_MS_ATTEMPTS`` times, and then fails."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us, launches = 0.0, 0
-    for evt in prof.key_averages():
-        if kernel in evt.key:
-            us += getattr(evt, "device_time_total", 0.0) or getattr(evt, "cuda_time_total", 0.0)
-            launches += evt.count
-    if launches < reps // 2 or us <= 0.0:
+    for attempt in range(1, DEVICE_MS_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):  # the warm-up step, then the recorded one
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        us, launches = 0.0, 0
+        for evt in prof.key_averages():
+            if kernel in evt.key:
+                us += getattr(evt, "device_time_total", 0.0) or getattr(evt, "cuda_time_total", 0.0)
+                launches += evt.count
+        if launches >= reps // 2 and us > 0.0:
+            break
+        log(f"    profiler: attempt {attempt} saw {launches} launches of {kernel} "
+            f"({us} us of device time) in {reps} calls")
+    else:
         fail(f"the profiler saw {launches} launches of {kernel} ({us} us of device time) "
-             f"in {reps} calls")
+             f"in {reps} calls, {DEVICE_MS_ATTEMPTS} times")
     log(f"    profiler: {launches} of {reps} launches recorded, {us:.1f} us of device time")
     return us / launches / 1e3
 
@@ -2547,6 +2895,17 @@ def segment_times(torch, gen, rows, bucket, shapes, entry, int_ops) -> None:
                   iops=n * int_ops if prng else 0, runs=0)
 
 
+def phase_start(torch, name: str) -> float:
+    """Free what earlier phases dropped and log the device memory they
+    still hold (every peak a later phase reports includes it); returns the
+    phase's start time."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase {name}: {torch.cuda.memory_allocated()} bytes of device memory allocated "
+        f"at its start")
+    return time.perf_counter()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=4)
@@ -2613,7 +2972,7 @@ def main() -> None:
 
     # phase 4c: sync_every with the drift probe, recenter_every, coded_bits_est,
     # the wire recorder and a checkpoint resume, at full width
-    t0 = time.perf_counter()
+    t0 = phase_start(torch, "4c")
     for k, n in local_update_path(torch, args.batch, args.seq).items():
         launches[k] += n
     log(f"phase 4c took {time.perf_counter() - t0:.1f} s")
@@ -2621,7 +2980,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # phase 4d: QAda adaptive levels on the main-path exchange, at full width
-    t0 = time.perf_counter()
+    t0 = phase_start(torch, "4d")
     qada = qada_path(torch, args.batch, args.seq, shapes, by_run["int8"])
     for k, n in qada["counts"].items():
         launches[k] += n
@@ -2630,7 +2989,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # phase 4f: the sparse compressors (ef21-topk, randk) at full width
-    t0 = time.perf_counter()
+    t0 = phase_start(torch, "4f")
     sparse_counts, sparse_peaks = sparse_path(torch, args.batch, args.seq, shapes,
                                               by_run["int8"])
     for k, n in sparse_counts.items():
@@ -2640,7 +2999,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # phase 4g: the step guard, fault injection and the watchdog's rollback, at full width
-    t0 = time.perf_counter()
+    t0 = phase_start(torch, "4g")
     guard = guard_path(torch, args.batch, args.seq, by_run["int8"], sparse_peaks["ef21-topk"])
     for k, n in guard["counts"].items():
         launches[k] += n
@@ -2649,7 +3008,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # phase 4b: the WGAN-GP testbed, every arm, and uq8 with the device PRNG
-    t0 = time.perf_counter()
+    t0 = phase_start(torch, "4b")
     gan, gan_rows = gan_path(torch, int_ops)
     launches["quantize_dequantize_segments"] = sum(
         n for arm, (_, n) in gan.items() if arm != GAN_PRNG_ARM)
@@ -2657,23 +3016,32 @@ def main() -> None:
     log(f"phase 4b took {time.perf_counter() - t0:.1f} s")
 
     # phase 4e: the toy-VI testbed (Fig. 4 and the compression arms) over kernel 5
-    t0 = time.perf_counter()
+    t0 = phase_start(torch, "4e")
     toy_launches, toy_row = toy_vi_path(torch)
     launches["quantize_dequantize_segments"] += toy_launches
     log(f"phase 4e took {time.perf_counter() - t0:.1f} s")
 
     # phase 4h: the serving path at full width, and kernels 1 and 3 at its shapes
-    t0 = time.perf_counter()
+    t0 = phase_start(torch, "4h")
     serve = serve_path(torch)
     serve_rows = serve_kernel_rows(torch, serve, errs)
     log(f"phase 4h took {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
 
+    # phase 4i: gemma-2b, qwen3-4b and gemma3-27b on the train and serve paths
+    t0 = phase_start(torch, "4i")
+    arch_train = archs_train(torch, args.batch, args.seq)
+    arch_serve = archs_serve(torch)
+    arch_rows = archs_kernel_rows(torch, arch_train, arch_serve, errs)
+    log(f"phase 4i took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # phase 5: kernel times at the main-path shapes
-    t0 = time.perf_counter()
+    t0 = phase_start(torch, "5")
     rows = (kernel_times(torch, launches, errs, shapes, int_ops, qada) + gan_rows + [toy_row]
-            + serve_rows)
+            + serve_rows + arch_rows)
     log(f"phase 5 took {time.perf_counter() - t0:.1f} s")
 
     print(card, flush=True)  # again, beside the results (a log's tail keeps it)

@@ -242,20 +242,22 @@ def _children(node):
 def _flatten_with_paths(tree) -> dict:
     """``{path: leaf}`` in flatten order, paths as the reference writes
     them."""
-    out = {}
-
-    def rec(node, prefix):
-        if node is None:
-            return
-        kids = _children(node)
-        if kids is None:
-            out["/".join(prefix)] = node
-            return
-        for key, child in kids[1]:
-            rec(child, prefix + [key])
-
-    rec(tree, [])
+    out: dict = {}
+    _paths(tree, [], out)
     return out
+
+
+def _paths(node, prefix: list, out: dict) -> None:
+    # module-level recursion: a nested recursive closure would form a
+    # reference cycle holding ``out`` (the leaves) until the cyclic gc
+    if node is None:
+        return
+    kids = _children(node)
+    if kids is None:
+        out["/".join(prefix)] = node
+        return
+    for key, child in kids[1]:
+        _paths(child, prefix + [key], out)
 
 
 def treedef_str(tree) -> str:
@@ -324,24 +326,21 @@ def _from_host(arr: np.ndarray, template, dtype: str):
     return t.to(template.device)
 
 
-def _rebuild(template, leaves_by_path: dict):
-    """``template``'s structure with the leaves of ``leaves_by_path``."""
-
-    def rec(node, prefix):
-        if node is None:
-            return None
-        kids = _children(node)
-        if kids is None:
-            return leaves_by_path["/".join(prefix)]
-        kind, items = kids
-        vals = [rec(c, prefix + [k]) for k, c in items]
-        if kind == "dict":
-            return dict(zip(sorted(node), vals))
-        if kind in ("namedtuple", "custom"):
-            return type(node)(*vals)
-        return type(node)(vals)
-
-    return rec(template, [])
+def _rebuild(template, leaves_by_path: dict, prefix: tuple = ()):
+    """``template``'s structure with the leaves of ``leaves_by_path`` (a
+    plain recursion, so that no reference cycle holds the leaves)."""
+    if template is None:
+        return None
+    kids = _children(template)
+    if kids is None:
+        return leaves_by_path["/".join(prefix)]
+    kind, items = kids
+    vals = [_rebuild(c, leaves_by_path, prefix + (k,)) for k, c in items]
+    if kind == "dict":
+        return dict(zip(sorted(template), vals))
+    if kind in ("namedtuple", "custom"):
+        return type(template)(*vals)
+    return type(template)(vals)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,14 @@
 """Model / shape configuration schema — the dense-decoder subset of
 ``repro/configs/base.py``.
 
-Only the fields a dense decoder (llama-style: RMSNorm, RoPE, GQA attention,
-SwiGLU MLP) reads are kept; ``reduced()`` cuts a config to its CPU smoke
-size with the same rule as the reference (2 layers, d_model <= 256,
-<= 4 heads, vocab <= 512, f32).
+Only the fields a dense decoder reads are kept: RMSNorm, RoPE, GQA / MQA
+attention with an optional per-head qk-norm, a sliding window on all but
+every ``global_every``-th layer (gemma3's 5:1 local:global pattern), and
+the SwiGLU / GeGLU / GELU MLP.  The reference's chunk-local window, MoE,
+MLA, SSM and encoder-decoder fields are not ported: passing one raises
+``TypeError``.  ``reduced()`` cuts a config to its CPU smoke size with the
+same rule as the reference (2 layers, d_model <= 256, <= 4 heads, vocab
+<= 512, window <= 64, f32).
 """
 
 from __future__ import annotations
@@ -30,7 +34,10 @@ class ModelConfig:
     num_heads: int = 0
     num_kv_heads: int = 0
     head_dim: int = 0  # 0 -> d_model // num_heads
+    qk_norm: bool = False
     rope_theta: float = 10000.0
+    sliding_window: int = 0  # 0 = full attention
+    global_every: int = 0  # every Nth layer is global (rest windowed); 0 = n/a
     d_ff: int = 0
     mlp_type: str = "swiglu"  # swiglu | geglu | gelu
     norm_type: str = "rmsnorm"  # rmsnorm | layernorm
@@ -79,5 +86,6 @@ class ModelConfig:
             num_kv_heads=nkv,
             head_dim=hd if self.num_heads else 0,
             d_ff=min(self.d_ff, 512) if self.d_ff else 0,
+            sliding_window=min(self.sliding_window, 64) if self.sliding_window else 0,
             dtype="float32",
         )

@@ -6,6 +6,9 @@ from repro_torch.configs.base import ModelConfig
 
 ARCHS = {
     "tinyllama-1.1b": "tinyllama_1_1b",
+    "gemma-2b": "gemma_2b",
+    "qwen3-4b": "qwen3_4b",
+    "gemma3-27b": "gemma3_27b",
 }
 
 

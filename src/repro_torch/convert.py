@@ -48,14 +48,18 @@ from repro_torch.optim.qgenx import QGenXOptState
 
 def _tree_of(model) -> dict:
     """The model's parameters as the reference's nested structure (a
-    ModuleList index becomes a tuple position)."""
+    ModuleList index becomes a tuple position; an empty ``layers`` or
+    ``layers_tail`` an empty tuple, as the reference holds it)."""
     tree: dict = {}
     for path, p in model.named_param_leaves():
         node, parts = tree, path.split(".")
         for part in parts[:-1]:
             node = node.setdefault(int(part) if part.isdigit() else part, {})
         node[parts[-1]] = p
-    return _ints_to_tuple(tree)
+    tree = _ints_to_tuple(tree)
+    tree.setdefault("layers", ())
+    tree.setdefault("layers_tail", ())
+    return tree
 
 
 def _ints_to_tuple(node):
@@ -69,17 +73,13 @@ def _ints_to_tuple(node):
 def params_tree(model) -> dict:
     """The model's parameters in the reference's params structure (the
     tensors themselves)."""
-    tree = _tree_of(model)
-    tree.setdefault("layers_tail", ())
-    return tree
+    return _tree_of(model)
 
 
 def params_to_jax(model) -> dict:
     """Model parameters -> the reference's params tree of numpy arrays
     (f32 for bf16 leaves, which numpy cannot hold)."""
-    tree = _tree_of(model)
-    tree.setdefault("layers_tail", ())
-    leaves, spec = tree_flatten(tree)
+    leaves, spec = tree_flatten(_tree_of(model))
     arrs = [l.detach().float().cpu().numpy() if l.dtype == torch.bfloat16
             else l.detach().cpu().numpy() for l in leaves]
     return tree_unflatten(spec, arrs)

@@ -16,38 +16,39 @@ from typing import Any
 def tree_flatten(tree) -> tuple[list, Any]:
     """-> (leaves in JAX order, spec for :func:`tree_unflatten`)."""
     leaves: list = []
+    return leaves, _flatten(tree, leaves)
 
-    def rec(node):
-        if node is None:
-            return ("none",)
-        if isinstance(node, dict):
-            keys = sorted(node)
-            return ("dict", tuple(keys), tuple(rec(node[k]) for k in keys))
-        if isinstance(node, (list, tuple)):
-            return (type(node), tuple(rec(c) for c in node))
-        leaves.append(node)
-        return ("leaf",)
 
-    spec = rec(tree)
-    return leaves, spec
+def _flatten(node, leaves: list):
+    # module-level recursion: a nested recursive closure would form a
+    # reference cycle holding ``leaves`` (the tensors) until the cyclic gc
+    if node is None:
+        return ("none",)
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return ("dict", tuple(keys), tuple(_flatten(node[k], leaves) for k in keys))
+    if isinstance(node, (list, tuple)):
+        return (type(node), tuple(_flatten(c, leaves) for c in node))
+    leaves.append(node)
+    return ("leaf",)
 
 
 def tree_unflatten(spec, leaves) -> Any:
     it = iter(leaves)
-
-    def rec(s):
-        if s[0] == "none":
-            return None
-        if s[0] == "leaf":
-            return next(it)
-        if s[0] == "dict":
-            return {k: rec(c) for k, c in zip(s[1], s[2])}
-        return s[0](rec(c) for c in s[1])
-
-    out = rec(spec)
+    out = _unflatten(spec, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the spec holds")
     return out
+
+
+def _unflatten(s, it):
+    if s[0] == "none":
+        return None
+    if s[0] == "leaf":
+        return next(it)
+    if s[0] == "dict":
+        return {k: _unflatten(c, it) for k, c in zip(s[1], s[2])}
+    return s[0](_unflatten(c, it) for c in s[1])
 
 
 def tree_leaves(tree) -> list:

@@ -12,6 +12,8 @@ step runs over the packed batch::
     python -m repro_torch.launch.serve --reduced --kv-bits 8 --device cpu
     python -m repro_torch.launch.serve --reduced --kv-bits 4 --batch 4 \\
         --requests 12 --prompt-len 16 --gen 16 --device cpu
+    python -m repro_torch.launch.serve --arch gemma3-27b --reduced --kv-bits mixed \\
+        --device cpu
     # serve the params of a checkpoint written by either train CLI
     python -m repro_torch.launch.serve --reduced --restore /tmp/ckpt --device cpu
     # hardened: decode guard + quarantine, deadlines, crash-safe snapshots
@@ -27,8 +29,11 @@ step runs over the packed batch::
 
 How it differs from the reference CLI:
 
-* ``--arch`` offers the ported configs only (tinyllama-1.1b); ``--device``
-  picks the device (cuda by default; ``cpu`` when asked).
+* ``--arch`` offers the ported configs only (tinyllama-1.1b, gemma-2b,
+  qwen3-4b, gemma3-27b) and defaults to tinyllama-1.1b, where the
+  reference defaults to gemma-2b; ``--device`` picks the device (cuda by
+  default; ``cpu`` when asked).  ``--kv-bits mixed`` stores gemma3's
+  local-window layers int4 and its global layers int8.
 * ``--host-devices`` and ``--compilation-cache-dir`` are XLA-only and
   unknown here.  K > 1 runs as one process per rank under ``torchrun``;
   the logit exchange is built only when the process group has more than
@@ -361,14 +366,16 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def run(args, say=print) -> dict:
+def run(args, say=print, config=None) -> dict:
     """Build the model (random from ``--seed``, or ``--restore``'s params)
-    and serve; returns :func:`_serve_paged`'s dict."""
+    and serve; returns :func:`_serve_paged`'s dict.  ``config`` replaces
+    the model config of ``--arch`` / ``--reduced`` (served in f32 all the
+    same), as in :func:`repro_torch.launch.train.run`."""
     comm, rank, world, device = _init_distributed(resolve_device(args.device))
     try:
         log = say if rank == 0 else (lambda m: None)
-        cfg = get_config(args.arch)
-        if args.reduced:
+        cfg = config or get_config(args.arch)
+        if args.reduced and config is None:
             cfg = cfg.reduced()
         cfg = dataclasses.replace(cfg, dtype="float32")
         model = build(cfg, seed=args.seed, device=device)

@@ -1,6 +1,7 @@
 """End-to-end training entry point of the port (``python -m repro_torch.launch.train``).
 
-Trains a dense decoder with ExtraAdam (the default, as in the reference
+Trains a dense decoder (``--arch`` tinyllama-1.1b, gemma-2b, qwen3-4b or
+gemma3-27b) with ExtraAdam (the default, as in the reference
 CLI), Adam, optimistic Adam or the paper's adaptive Q-GenX optimizer, and
 the gradient exchange (``--compressor`` any name of the registry: qgenx,
 layerwise, none, randk, ef21-topk, ef-randk; ``--rand-frac`` /
@@ -13,6 +14,8 @@ CPU), which sets the rank and world size read here::
         --steps 20 --batch 8 --seq 128 --compression int8
     python -m repro_torch.launch.train --reduced --optimizer qgenx --method optda \\
         --compression int8
+    python -m repro_torch.launch.train --arch qwen3-4b --reduced --device cpu \\
+        --optimizer qgenx --compression int8
     torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --arch tinyllama-1.1b --reduced --compression int4 --compressor layerwise
     python -m repro_torch.launch.train --reduced --optimizer qgenx \\

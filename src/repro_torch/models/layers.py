@@ -1,13 +1,19 @@
 """Building blocks of the dense decoder (port of the dense parts of
-``repro/models/layers.py``): RMS/layer norm, rotary embeddings, the
-SwiGLU/GeGLU/GELU MLP and causal GQA attention in plain torch ops.
+``repro/models/layers.py``): RMS/layer norm, the per-head qk-norm, rotary
+embeddings, the SwiGLU/GeGLU/GELU MLP and causal GQA / MQA attention,
+full or banded to a sliding window, in plain torch ops.
 
 Each block takes its parameters as a dict of tensors (the reference's
-layout: q/k/v weights ``[D, H, hd]``, output ``[H, hd, D]``), computes
-norms, rope and softmax in f32 and returns the activation dtype.
+layout: q/k/v weights ``[D, H, hd]``, output ``[H, hd, D]``, qk-norm
+scales ``[hd]``), computes norms, rope and softmax in f32 and returns the
+activation dtype.  qk-norm, where the config has it, is applied to q and
+k before rope on every path.  A layer's :class:`AttnMode` says whether it
+attends to the whole causal history or to its last ``window`` positions.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -27,6 +33,13 @@ def norm_apply(p, x: torch.Tensor, norm_type: str) -> torch.Tensor:
         if "bias" in p:
             out = out + p["bias"]
     return out.to(x.dtype)
+
+
+def head_rms_norm(scale: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Per-head rms norm over head_dim (qwen3-style qk-norm)."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + 1e-6) * scale).to(x.dtype)
 
 
 def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float):
@@ -53,9 +66,9 @@ def mlp_apply(p, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
     if mlp_type == "swiglu":
         h = F.silu(x @ p["wg"]) * h
     elif mlp_type == "geglu":
-        h = F.gelu(x @ p["wg"]) * h
+        h = F.gelu(x @ p["wg"], approximate="tanh") * h
     else:
-        h = F.gelu(h)
+        h = F.gelu(h, approximate="tanh")
     return h @ p["wo"]
 
 
@@ -91,17 +104,67 @@ def full_attention(q, k, v, causal: bool):
     return _sdpa(q, k, v, mask[None, None], hd**-0.5)
 
 
-def attention_apply(p, cfg: ModelConfig, x: torch.Tensor,
-                    positions: torch.Tensor) -> torch.Tensor:
-    """Causal full-sequence self-attention (train/prefill). x: [B, S, D]."""
+def banded_attention(q, k, v, window: int):
+    """Sliding-window causal attention, chunk by chunk: queries of chunk c
+    (``window`` positions each; the sequence padded to a multiple) attend
+    the keys of chunks c - 1 and c, masked to exactly ``window`` history;
+    the first chunk has no previous keys.  q/k/v [B, S, H, hd]."""
+    B, S, H, hd = q.shape
+    W = window
+    pad = (-S) % W
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+    Sp = S + pad
+    nc = Sp // W
+    qc, kc, vc = (t.reshape(B, nc, W, H, hd) for t in (q, k, v))
+    k2 = torch.cat([torch.cat([torch.zeros_like(kc[:, :1]), kc[:, :-1]], dim=1), kc], dim=2)
+    v2 = torch.cat([torch.cat([torch.zeros_like(vc[:, :1]), vc[:, :-1]], dim=1), vc], dim=2)
+    qi = torch.arange(W, device=q.device)[:, None] + W  # index within the 2W keys
+    kj = torch.arange(2 * W, device=q.device)[None, :]
+    mask = (kj <= qi) & (kj > qi - W)
+    first = (torch.arange(nc, device=q.device) == 0)[:, None, None]
+    masks = torch.where(first, (mask & (kj >= W))[None], mask[None])  # [nc, W, 2W]
+    logits = torch.einsum("bcqhd,bckhd->bchqk", qc.float(), k2.float()) * (hd**-0.5)
+    logits = torch.where(masks[None, :, None], logits,
+                         torch.full((), -1e30, device=logits.device))
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bchqk,bckhd->bcqhd", w.to(v2.dtype), v2)
+    return out.reshape(B, Sp, H, hd)[:, :S]
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnMode:
+    """Static attention behaviour of one layer (the reference's ``chunk``
+    mode comes with llama4)."""
+
+    causal: bool = True
+    window: int = 0  # >0: banded sliding window
+
+
+def _qk_norm(p, cfg: ModelConfig, q, k):
+    if cfg.qk_norm:
+        q = head_rms_norm(p["q_norm"], q)
+        k = head_rms_norm(p["k_norm"], k)
+    return q, k
+
+
+def attention_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+                    mode: AttnMode) -> torch.Tensor:
+    """Full-sequence self-attention (train/prefill), causal or banded to
+    ``mode.window``. x: [B, S, D]."""
     H, hd = cfg.num_heads, cfg.resolved_head_dim
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q, k = _qk_norm(p, cfg, q, k)
     cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    out = full_attention(q, _repeat_kv(k, H), _repeat_kv(v, H), causal=True)
+    k, v = _repeat_kv(k, H), _repeat_kv(v, H)
+    if mode.window:
+        out = banded_attention(q, k, v, mode.window)
+    else:
+        out = full_attention(q, k, v, mode.causal)
     return torch.einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
 
 
@@ -113,6 +176,8 @@ def attention_prefill_kv(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.
     hd = cfg.resolved_head_dim
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.qk_norm:
+        k = head_rms_norm(p["k_norm"], k)
     cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
     return apply_rope(k, cos, sin), v
 
@@ -121,6 +186,7 @@ def _project_decode(p, cfg: ModelConfig, x: torch.Tensor, cos, sin):
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k_new = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v_new = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q, k_new = _qk_norm(p, cfg, q, k_new)
     return apply_rope(q, cos, sin), apply_rope(k_new, cos, sin), v_new
 
 
@@ -139,22 +205,31 @@ def _grouped_attend(p, cfg: ModelConfig, x, q, k_all, v_all, valid):
 
 
 def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, pos: int,
-                     k_cache: torch.Tensor, v_cache: torch.Tensor) -> torch.Tensor:
+                     k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     mode: AttnMode) -> torch.Tensor:
     """One-token decode against a dense cache: x [B, 1, D], ``pos`` the
     shared position; writes this token's K/V at ``pos`` of k_cache /
-    v_cache [B, S, KV, hd] (in place) and attends over positions <= pos.
-    Returns [B, 1, D]."""
+    v_cache [B, S, KV, hd] (in place) and attends over positions <= pos
+    (a window layer over the last ``W`` cache entries only, from
+    ``clip(pos - W + 1, 0, S - W)``).  Returns [B, 1, D]."""
     hd, S = cfg.resolved_head_dim, k_cache.shape[1]
     cos, sin = rope_cos_sin(torch.tensor([pos], device=x.device), hd, cfg.rope_theta)
     q, k_new, v_new = _project_decode(p, cfg, x, cos[None], sin[None])
     k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
     v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
-    valid = (torch.arange(S, device=x.device) <= pos)[None].expand(x.shape[0], S)
-    return _grouped_attend(p, cfg, x, q, k_cache, v_cache, valid)
+    start, n = 0, S
+    if mode.window:
+        n = min(mode.window, S)
+        start = min(max(pos - n + 1, 0), S - n)
+    key_pos = start + torch.arange(n, device=x.device)
+    valid = (key_pos <= pos)[None].expand(x.shape[0], n)
+    return _grouped_attend(p, cfg, x, q, k_cache[:, start:start + n],
+                           v_cache[:, start:start + n], valid)
 
 
 def attention_decode_paged(p, cfg: ModelConfig, pc, cache: dict, l: int, x: torch.Tensor,
-                           pos: torch.Tensor, page_table: torch.Tensor, noise):
+                           pos: torch.Tensor, page_table: torch.Tensor, noise,
+                           mode: AttnMode):
     """One-token decode against the paged quantized cache (port of the
     reference's ``attention_decode_paged``).
 
@@ -163,7 +238,8 @@ def attention_decode_paged(p, cfg: ModelConfig, pc, cache: dict, l: int, x: torc
     (-1 = unmapped), and the current token rides as an always-valid extra
     key, so the attention never sees its own quantization noise; its K/V
     are written after the read.  Slots whose row is all -1 are inert:
-    their writes drop and the extra key keeps their softmax finite.
+    their writes drop and the extra key keeps their softmax finite.  A
+    window layer masks ``key_pos > pos - W`` rather than slicing.
     Returns [B, 1, D]; ``cache`` is updated in place."""
     from repro_torch.serve import kv_cache as KVC  # lazy: serve imports configs only
 
@@ -174,6 +250,8 @@ def attention_decode_paged(p, cfg: ModelConfig, pc, cache: dict, l: int, x: torc
     key_pos = torch.arange(T, device=x.device)[None, :]
     mapped = torch.repeat_interleave(page_table >= 0, pc.page_size, dim=1)
     valid = (key_pos < pos[:, None]) & mapped
+    if mode.window:
+        valid = valid & (key_pos > pos[:, None] - mode.window)
     k_all = torch.cat([k_hist, k_new.float()], dim=1)
     v_all = torch.cat([v_hist, v_new.float()], dim=1)
     valid = torch.cat([valid, torch.ones_like(valid[:, :1])], dim=1)

@@ -2,11 +2,16 @@
 ``repro/models/transformer.py``).
 
 Parameters keep the reference's pytree layout so the exchange sees the
-same leaves: every per-layer weight is stacked over layers (``[L, ...]``,
-the reference scans over that axis), under ``layers.0`` (one pattern
-period for a dense stack), beside ``embed`` and ``unembed`` (f32),
-``ln_f``.  :meth:`DenseDecoder.param_leaves` lists them in JAX flatten
-order.
+same leaves.  Layers follow a repeating *pattern* of period
+``global_every`` (gemma3's 5 local : 1 global; 1 for a stack without a
+window, :func:`layer_pattern`): ``layers[j]`` stacks every layer at
+offset ``j`` of its period over the ``n_periods`` periods (``[n, ...]``
+leaves), and the ``num_layers % period`` remainder layers sit unstacked
+in ``layers_tail`` (the pattern goes on through them).  Layer ``l`` is
+``layers[l % period][l // period]`` below ``n_periods * period`` and
+``layers_tail[l - n_periods * period]`` after (:func:`layer_params`).
+``embed`` and ``unembed`` are f32, beside ``ln_f``.
+:meth:`DenseDecoder.param_leaves` lists the leaves in JAX flatten order.
 
 Decode (ported with the serving path): :func:`init_cache` /
 :func:`decode_step` over a dense ``[L, B, S, KV, hd]`` cache, and the
@@ -32,6 +37,27 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
+def layer_pattern(cfg: ModelConfig):
+    """(period, flags, n_periods, n_rem); flags[j] = (is_moe, is_global).
+
+    The reference's pattern over the fields the port's config has (no
+    experts): with a sliding window every ``global_every``-th layer is
+    global and the rest are local; without one every layer is global and
+    the period is 1."""
+    has_window = bool(cfg.sliding_window)
+    period = cfg.global_every if (has_window and cfg.global_every) else 1
+    flags = tuple((False, not has_window or (cfg.global_every > 0 and j % period == period - 1))
+                  for j in range(period))
+    n_periods = cfg.num_layers // period
+    return period, flags, n_periods, cfg.num_layers - n_periods * period
+
+
+def attn_mode(cfg: ModelConfig, is_global: bool) -> L.AttnMode:
+    if is_global or not cfg.sliding_window:
+        return L.AttnMode(causal=True)
+    return L.AttnMode(causal=True, window=cfg.sliding_window)
+
+
 def _normal(gen, shape, scale, dtype, device):
     return (torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
             * scale).to(dtype)
@@ -44,55 +70,71 @@ class Norm(nn.Module):
 
 
 class Attention(nn.Module):
-    """Stacked q/k/v/o projections: wq [L, D, H, hd], wk/wv [L, D, KV, hd],
-    wo [L, H, hd, D]."""
+    """q/k/v/o projections with the layer axis ``lead`` (``(n,)`` stacked,
+    ``()`` unstacked) in front: wq [D, H, hd], wk/wv [D, KV, hd], wo
+    [H, hd, D], and under qk-norm the f32 scales q_norm / k_norm [hd]."""
 
-    def __init__(self, cfg: ModelConfig, n: int, gen, dtype, device):
+    def __init__(self, cfg: ModelConfig, lead: tuple, gen, dtype, device):
         super().__init__()
         d, hd = cfg.d_model, cfg.resolved_head_dim
         H, KV = cfg.num_heads, cfg.num_kv_heads
-        self.wq = nn.Parameter(_normal(gen, (n, d, H, hd), d**-0.5, dtype, device))
-        self.wk = nn.Parameter(_normal(gen, (n, d, KV, hd), d**-0.5, dtype, device))
-        self.wv = nn.Parameter(_normal(gen, (n, d, KV, hd), d**-0.5, dtype, device))
-        self.wo = nn.Parameter(_normal(gen, (n, H, hd, d), (H * hd) ** -0.5, dtype, device))
+        self.wq = nn.Parameter(_normal(gen, (*lead, d, H, hd), d**-0.5, dtype, device))
+        self.wk = nn.Parameter(_normal(gen, (*lead, d, KV, hd), d**-0.5, dtype, device))
+        self.wv = nn.Parameter(_normal(gen, (*lead, d, KV, hd), d**-0.5, dtype, device))
+        self.wo = nn.Parameter(_normal(gen, (*lead, H, hd, d), (H * hd) ** -0.5, dtype,
+                                       device))
+        if cfg.qk_norm:
+            self.q_norm = nn.Parameter(torch.ones((*lead, hd), dtype=torch.float32,
+                                                  device=device))
+            self.k_norm = nn.Parameter(torch.ones((*lead, hd), dtype=torch.float32,
+                                                  device=device))
 
 
 class MLP(nn.Module):
-    """Stacked MLP weights: wi/wg [L, D, F], wo [L, F, D]."""
+    """MLP weights with the layer axis ``lead`` in front: wi/wg [D, F],
+    wo [F, D]."""
 
-    def __init__(self, cfg: ModelConfig, n: int, gen, dtype, device):
+    def __init__(self, cfg: ModelConfig, lead: tuple, gen, dtype, device):
         super().__init__()
         d, f = cfg.d_model, cfg.d_ff
-        self.wi = nn.Parameter(_normal(gen, (n, d, f), d**-0.5, dtype, device))
-        self.wo = nn.Parameter(_normal(gen, (n, f, d), f**-0.5, dtype, device))
+        self.wi = nn.Parameter(_normal(gen, (*lead, d, f), d**-0.5, dtype, device))
+        self.wo = nn.Parameter(_normal(gen, (*lead, f, d), f**-0.5, dtype, device))
         if cfg.mlp_type in ("swiglu", "geglu"):
-            self.wg = nn.Parameter(_normal(gen, (n, d, f), d**-0.5, dtype, device))
+            self.wg = nn.Parameter(_normal(gen, (*lead, d, f), d**-0.5, dtype, device))
 
 
 class LayerStack(nn.Module):
-    """All layers of one pattern period, stacked over the layer axis."""
+    """The layers at one offset of the pattern, stacked over ``n`` periods
+    (``n=None``: one unstacked tail layer, the reference's
+    ``layers_tail`` leaves)."""
 
-    def __init__(self, cfg: ModelConfig, n: int, gen, dtype, device):
+    def __init__(self, cfg: ModelConfig, n, gen, dtype, device):
         super().__init__()
         self.n = n
-        self.ln_attn = Norm((n, cfg.d_model), device)
-        self.attn = Attention(cfg, n, gen, dtype, device)
-        self.ln_mlp = Norm((n, cfg.d_model), device)
-        self.mlp = MLP(cfg, n, gen, dtype, device)
+        lead = () if n is None else (n,)
+        self.ln_attn = Norm((*lead, cfg.d_model), device)
+        self.attn = Attention(cfg, lead, gen, dtype, device)
+        self.ln_mlp = Norm((*lead, cfg.d_model), device)
+        self.mlp = MLP(cfg, lead, gen, dtype, device)
 
     def layer(self, i: int) -> dict:
-        """Layer i's parameters as the reference's per-layer dict."""
+        """Layer i's parameters as the reference's per-layer dict (a tail
+        layer's are its own, whatever ``i``)."""
+        def pick(t):
+            return t if self.n is None else t[i]
+
         return {
-            "ln_attn": {"scale": self.ln_attn.scale[i]},
-            "attn": {name: getattr(self.attn, name)[i] for name in ("wq", "wk", "wv", "wo")},
-            "ln_mlp": {"scale": self.ln_mlp.scale[i]},
-            "mlp": {name: p[i] for name, p in self.mlp.named_parameters()},
+            "ln_attn": {"scale": pick(self.ln_attn.scale)},
+            "attn": {name: pick(p) for name, p in self.attn.named_parameters()},
+            "ln_mlp": {"scale": pick(self.ln_mlp.scale)},
+            "mlp": {name: pick(p) for name, p in self.mlp.named_parameters()},
         }
 
 
-def block_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+def block_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+                is_global: bool):
     h = L.norm_apply(p["ln_attn"], x, cfg.norm_type)
-    x = x + L.attention_apply(p["attn"], cfg, h, positions)
+    x = x + L.attention_apply(p["attn"], cfg, h, positions, attn_mode(cfg, is_global))
     h = L.norm_apply(p["ln_mlp"], x, cfg.norm_type)
     return x + L.mlp_apply(p["mlp"], h, cfg.mlp_type)
 
@@ -106,10 +148,14 @@ class DenseDecoder(nn.Module):
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         dtype = model_dtype(cfg)
+        period, _, n_periods, n_rem = layer_pattern(cfg)
         self.cfg = cfg
         self.embed = nn.Parameter(_normal(gen, (cfg.vocab_size, cfg.d_model), 1.0,
                                           torch.float32, device))
-        self.layers = nn.ModuleList([LayerStack(cfg, cfg.num_layers, gen, dtype, device)])
+        self.layers = nn.ModuleList([LayerStack(cfg, n_periods, gen, dtype, device)
+                                     for _ in range(period if n_periods else 0)])
+        self.layers_tail = nn.ModuleList([LayerStack(cfg, None, gen, dtype, device)
+                                          for _ in range(n_rem)])
         self.ln_f = Norm((cfg.d_model,), device)
         if not cfg.tie_embeddings:
             self.unembed = nn.Parameter(_normal(gen, (cfg.d_model, cfg.vocab_size),
@@ -125,29 +171,17 @@ class DenseDecoder(nn.Module):
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         B, S = tokens.shape
-        x = self.embed[tokens].to(model_dtype(cfg)) * (cfg.d_model**0.5)
+        x = _embed(self, tokens)
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-        for stack in self.layers:
-            for i in range(stack.n):
-                x = block_apply(stack.layer(i), cfg, x, positions)
-        x = L.norm_apply({"scale": self.ln_f.scale}, x, cfg.norm_type)
-        if cfg.tie_embeddings:
-            return torch.einsum("bsd,vd->bsv", x.float(), self.embed)
-        return x.float() @ self.unembed
+        period, flags, _, _ = layer_pattern(cfg)
+        for l in range(cfg.num_layers):
+            x = block_apply(layer_params(self, l), cfg, x, positions, flags[l % period][1])
+        return _unembed(self, x)
 
 
 # ---------------------------------------------------------------------------
 # Decode: the dense KV cache, and the paged cache of the serving path
 # ---------------------------------------------------------------------------
-
-
-def layer_pattern(cfg: ModelConfig):
-    """(period, flags, n_periods, n_rem); flags[j] = (is_moe, is_global).
-
-    The reference's pattern over the fields the port's config has: no
-    window and no experts, so every layer is a dense global-attention
-    layer and the period is 1."""
-    return 1, ((False, True),), cfg.num_layers, 0
 
 
 def paged_eligible(cfg: ModelConfig) -> bool:
@@ -156,8 +190,13 @@ def paged_eligible(cfg: ModelConfig) -> bool:
     return cfg.arch_type == "dense"
 
 
-def _layer_params(model: DenseDecoder, l: int) -> dict:
-    return model.layers[0].layer(l)
+def layer_params(model: DenseDecoder, l: int) -> dict:
+    """Layer ``l``'s parameters by absolute index (the reference's
+    ``_layer_params_at``)."""
+    period, _, n_periods, _ = layer_pattern(model.cfg)
+    if l < n_periods * period:
+        return model.layers[l % period].layer(l // period)
+    return model.layers_tail[l - n_periods * period].layer(0)
 
 
 def _embed(model: DenseDecoder, token: torch.Tensor) -> torch.Tensor:
@@ -187,12 +226,13 @@ def forward_with_kv(model: DenseDecoder, tokens: torch.Tensor):
     B, S = tokens.shape
     x = _embed(model, tokens)
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    period, flags, _, _ = layer_pattern(cfg)
     kvs = []
     for l in range(cfg.num_layers):
-        p = _layer_params(model, l)
+        p = layer_params(model, l)
         h = L.norm_apply(p["ln_attn"], x, cfg.norm_type)
         kvs.append(L.attention_prefill_kv(p["attn"], cfg, h, positions))
-        x = block_apply(p, cfg, x, positions)
+        x = block_apply(p, cfg, x, positions, flags[l % period][1])
     return _unembed(model, x), tuple(kvs)
 
 
@@ -219,11 +259,12 @@ def decode_step_paged(model: DenseDecoder, pc, cache: dict, token: torch.Tensor,
     -> (logits [B, V], cache written in place)."""
     cfg = model.cfg
     x = _embed(model, token)[:, None, :]
+    period, flags, _, _ = layer_pattern(cfg)
     for l in range(cfg.num_layers):
-        p = _layer_params(model, l)
+        p = layer_params(model, l)
         h = L.norm_apply(p["ln_attn"], x, cfg.norm_type)
         x = x + L.attention_decode_paged(p["attn"], cfg, pc, cache, l, h, pos, page_table,
-                                         noise)
+                                         noise, attn_mode(cfg, flags[l % period][1]))
         x = _mlp_residual(p, cfg, x)
     return _unembed(model, x)[:, 0], cache
 
@@ -236,11 +277,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
-def decode_block(p, cfg: ModelConfig, x: torch.Tensor, pos: int, layer_cache: dict):
+def decode_block(p, cfg: ModelConfig, x: torch.Tensor, pos: int, layer_cache: dict,
+                 is_global: bool):
     """One layer of dense decode; ``layer_cache`` {"k", "v"} [B, S, KV, hd]
     is written in place.  Returns (x, layer_cache)."""
     h = L.norm_apply(p["ln_attn"], x, cfg.norm_type)
-    x = x + L.attention_decode(p["attn"], cfg, h, pos, layer_cache["k"], layer_cache["v"])
+    x = x + L.attention_decode(p["attn"], cfg, h, pos, layer_cache["k"], layer_cache["v"],
+                               attn_mode(cfg, is_global))
     return _mlp_residual(p, cfg, x), layer_cache
 
 
@@ -250,7 +293,8 @@ def decode_step(model: DenseDecoder, cache: dict, token: torch.Tensor, pos: int)
     in place)."""
     cfg = model.cfg
     x = _embed(model, token)[:, None, :]
+    period, flags, _, _ = layer_pattern(cfg)
     for l in range(cfg.num_layers):
-        x, _ = decode_block(_layer_params(model, l), cfg, x, pos,
-                            {"k": cache["k"][l], "v": cache["v"][l]})
+        x, _ = decode_block(layer_params(model, l), cfg, x, pos,
+                            {"k": cache["k"][l], "v": cache["v"][l]}, flags[l % period][1])
     return _unembed(model, x)[:, 0], cache

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ModelConfig, get_config
 from repro_torch.core.exchange import (
     ExchangeConfig,
     exchange_buffer_bytes,
@@ -213,10 +213,20 @@ def test_qada_cli_prints_and_returns_levels(capsys):
     assert "[train] qada levels=" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("field", [dict(chunked_window=True), dict(num_experts=4)])
+def test_unported_model_fields_are_rejected(field):
+    # llama4's chunk-local window and the MoE fields come with ROADMAP A6:
+    # until then they are unknown keywords
+    with pytest.raises(TypeError):
+        ModelConfig(name="x", arch_type="dense", num_layers=2, d_model=64, vocab_size=32,
+                    **field)
+
+
 @pytest.mark.parametrize("argv", [["--host-devices", "2"], ["--compilation-cache-dir", "x"],
-                                  ["--arch", "gemma-2b"]])
+                                  ["--arch", "mamba2-2.7b"]])
 def test_serve_cli_has_no_xla_only_flags(argv, capsys):
     # XLA-only flags (ROADMAP A8) are unknown; --arch offers ported configs only
+    # (mamba2-2.7b comes with the SSM family, ROADMAP A6)
     from repro_torch.launch import serve
 
     with pytest.raises(SystemExit):

@@ -12,9 +12,9 @@ against the reference's format.
   ``msgpack.unpackb``'s values.
 * A truncated npz and a garbage ``latest`` walk back; a changed exchange
   config raises ``CheckpointStructureError`` or resets ``ex_state`` under
-  ``allow_reset``; the train CLI exits 2 on it.
-* A CPU run resumed at step 2 equals the uninterrupted run bit for bit
-  (losses, metrics and the final checkpoint's arrays).
+  ``allow_reset`` (the train CLI's exit and resumed runs:
+  ``test_torch_checkpoint_resume.py``; QAda's state:
+  ``test_torch_checkpoint_qada.py``).
 * bf16 layer weights round-trip bit for bit.
 * A reference-saved f32 checkpoint resumes in the port's train CLI.
 """
@@ -230,44 +230,6 @@ def test_changed_exchange_config_raises_or_resets(tmp_path):
         ckpt.restore(d, {"params": bad["params"]})
 
 
-def _cli(tmp_path, *extra, steps=4, optimizer="qgenx"):
-    return ["--reduced", "--steps", str(steps), "--batch", "4", "--seq", "16",
-            "--compression", "int8", "--optimizer", optimizer, "--sync-every", "2",
-            "--recenter-every", "2", "--device", "cpu", *extra]
-
-
-def test_cli_exits_2_on_a_changed_exchange_config(tmp_path, capsys):
-    d = str(tmp_path / "ck")
-    train.main(_cli(tmp_path, "--checkpoint-dir", d, steps=1))
-    args = _cli(tmp_path, "--checkpoint-dir", d, steps=2)
-    args[args.index("int8")] = "int4"
-    with pytest.raises(SystemExit) as e:
-        train.main(args)
-    assert e.value.code == 2
-    assert "ex_state" in capsys.readouterr().err
-    out = train.main(args + ["--allow-ckpt-reset"])
-    assert out["start_step"] == 1 and len(out["loss"]) == 1
-
-
-@pytest.mark.parametrize("optimizer", ["qgenx", "extra_adam"])
-def test_resumed_run_equals_uninterrupted_run(tmp_path, optimizer):
-    full_dir, part_dir = str(tmp_path / "full"), str(tmp_path / "part")
-    full = train.main(_cli(tmp_path, "--checkpoint-dir", full_dir, optimizer=optimizer))
-    first = train.main(_cli(tmp_path, "--checkpoint-dir", part_dir, "--checkpoint-every", "2",
-                            steps=2, optimizer=optimizer))
-    rest = train.main(_cli(tmp_path, "--checkpoint-dir", part_dir, optimizer=optimizer))
-    assert rest["start_step"] == 2 and rest["restored"]["step"] == 2
-    for key in ("loss", "wire_bytes", "param_drift", "coded_bits_est"):
-        assert first[key] + rest[key] == full[key], key
-    again = train.main(_cli(tmp_path, "--checkpoint-dir", part_dir, optimizer=optimizer))
-    assert again["loss"] == [] and again["saves"] == []  # nothing ran, nothing saved
-    with np.load(os.path.join(full_dir, "ckpt_4.npz")) as a, \
-            np.load(os.path.join(part_dir, "ckpt_4.npz")) as b:
-        assert sorted(a.files) == sorted(b.files)
-        for k in a.files:
-            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-
-
 def test_bf16_round_trips(tmp_path):
     cfg = get_config("tinyllama-1.1b").reduced()
     import dataclasses
@@ -307,74 +269,3 @@ def test_reference_checkpoint_resumes_in_port_cli(reference, tmp_path, ex_kind, 
     assert np.isfinite(out["loss"][0])
     _, got = jax_ckpt.restore(d, _jax_templates(reference, "qgenx", "de"), step=4)
     assert int(got["opt_state"].count) == 1
-
-
-# ---------------------------------------------------------------------------
-# QAda state: a [512] histogram mid-period and refreshed tables
-# ---------------------------------------------------------------------------
-
-QADA = ("--level-schedule", "qada", "--level-update-every", "4")
-
-
-def test_qada_checkpoint_resumes_bit_equal(tmp_path):
-    """de makes 2 exchange calls a step and sync_every=2 / recenter_every=2
-    a third on each sync step (steps 1, 3, 5), so with a period of 4 calls
-    the step-4 checkpoint (6 calls) holds the table refreshed at call 4 and
-    the histogram of calls 5 and 6."""
-    full_dir, part_dir = str(tmp_path / "full"), str(tmp_path / "part")
-    full = train.main(_cli(tmp_path, "--checkpoint-dir", full_dir, *QADA, steps=6))
-    first = train.main(_cli(tmp_path, "--checkpoint-dir", part_dir, "--checkpoint-every", "4",
-                            *QADA, steps=4))
-    _, mid = ckpt.restore(part_dir, {"ex_state": make_exchange(ExchangeConfig(
-        quant=QuantConfig(**Q8), level_schedule="qada",
-        level_update_every=4)).init_state("cpu")})
-    assert mid["ex_state"].hist.shape == (512,) and float(mid["ex_state"].hist.sum()) > 0
-    assert not np.allclose(mid["ex_state"].levels.numpy(), np.linspace(0, 1, 17), atol=1e-4)
-    rest = train.main(_cli(tmp_path, "--checkpoint-dir", part_dir, *QADA, steps=6))
-    assert rest["start_step"] == 4
-    for key in ("loss", "wire_bytes", "param_drift", "coded_bits_est"):
-        assert first[key] + rest[key] == full[key], key
-    assert rest["levels"] == full["levels"]
-    with np.load(os.path.join(full_dir, "ckpt_6.npz")) as a, \
-            np.load(os.path.join(part_dir, "ckpt_6.npz")) as b:
-        for k in a.files:
-            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-
-
-def test_qada_checkpoint_interoperates_with_reference(tmp_path):
-    ex = make_exchange(ExchangeConfig(quant=QuantConfig(**Q8), level_schedule="qada",
-                                      level_update_every=3))
-    st = ex.init_state("cpu")
-    rng = np.random.RandomState(4)
-    tree = {"a": torch.from_numpy(rng.randn(3000).astype(np.float32))}
-    for _ in range(4):  # 4 calls: one refresh, one call of statistics since
-        _, st = ex.pmean_tree(tree, st, GeneratorNoise.seeded(1, "cpu"))
-    assert float(st.hist.sum()) > 0 and st.step == 4
-    jcfg = JaxExchangeConfig(compressor="qgenx", quant=JaxQuant(**Q8), level_schedule="qada",
-                             level_update_every=3)
-    jtemplate = jax_make_exchange(jcfg).init_state()
-    ckpt.save(str(tmp_path / "port"), 4, {"ex_state": st})
-    step, got = jax_ckpt.restore(str(tmp_path / "port"), {"ex_state": jtemplate})
-    want = convert.ex_state_to_jax(st)
-    for f in ("levels", "levels_lo", "hist", "step", "error", "pending"):
-        _assert_trees_equal(getattr(got["ex_state"], f), getattr(want, f))
-    jax_ckpt.save(str(tmp_path / "ref"), 4, got)
-    assert (tmp_path / "ref" / "ckpt_4.meta").read_bytes() == \
-        (tmp_path / "port" / "ckpt_4.meta").read_bytes()
-    _, back = ckpt.restore(str(tmp_path / "ref"), {"ex_state": ex.init_state("cpu")})
-    back = convert.ex_state_from_jax(back["ex_state"], "cpu")
-    assert back.step == 4 and torch.equal(back.hist, st.hist) and torch.equal(back.levels,
-                                                                               st.levels)
-
-
-def test_fixed_checkpoint_into_a_qada_run_exits_or_resets(tmp_path, capsys):
-    d = str(tmp_path / "ck")
-    train.main(_cli(tmp_path, "--checkpoint-dir", d, steps=1))
-    args = _cli(tmp_path, "--checkpoint-dir", d, *QADA, steps=2)
-    with pytest.raises(SystemExit) as e:
-        train.main(args)
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "ex_state" in err and "(1,) != template (512,)" in err  # the histogram
-    out = train.main(args + ["--allow-ckpt-reset"])
-    assert out["start_step"] == 1 and len(out["loss"]) == 1

@@ -6,7 +6,9 @@ bit-exact, except the L^2 / L^1 bucket norms (summation order differs:
 rtol 1e-6).
 """
 
+import gc
 import math
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -115,6 +117,24 @@ def test_tree_flatten_is_jax_order():
         assert a is b
     back = tree_unflatten(spec, tleaves)
     assert list(back) == sorted(tree) and back["mid"][0]["x"] is tree["mid"][0]["x"]
+
+
+def test_tree_flatten_and_unflatten_leave_no_reference_cycles():
+    """A recursive closure inside them would hold every leaf in a reference
+    cycle until the cyclic gc runs: at full width, gigabytes of gradients
+    and states a train step (an H100 peak 10 GB higher in one run than in
+    another, by the gc's timing alone)."""
+    leaf = torch.zeros(3)
+    ref = weakref.ref(leaf)
+    gc.collect()
+    gc.disable()
+    try:
+        leaves, spec = tree_flatten({"a": [leaf, None], "b": (leaf,)})
+        assert tree_unflatten(spec, leaves)["b"][0] is leaf
+        del leaves, spec, leaf
+        assert ref() is None
+    finally:
+        gc.enable()
 
 
 @pytest.mark.parametrize("purpose", ["pmean", "compress"])
