@@ -130,8 +130,9 @@ imports only ``repro_torch`` (from ``src/`` beside this file) and:
       ``toy-vi-uq8`` row: device time from ``torch.profiler``,
       ``wrapper_ms``) (``toy_vi_path``);
    h. the serving path (``repro_torch.launch.serve`` at the full width of
-      tinyllama-1.1b, f32, ``--batch 16 --requests 48 --prompt-len 512
-      --gen 128 --page-size 16``): ``--kv-bits`` 8, 4 and 32, each request
+      tinyllama-1.1b, f32, ``--batch 16 --requests 32 --prompt-len 512
+      --gen 128 --page-size 16``; 48 requests before phase 4j, the cut
+      logged as a ``reduced:`` line): ``--kv-bits`` 8, 4 and 32, each request
       answered, kernel 1 launched 2 x 22 times a wave and a prefill and
       kernel 3 2 x 22 times a wave, the cache >= 2x / >= 4x below fp32, the
       fp32 tokens equal a full forward's argmax but at near ties; one
@@ -158,6 +159,18 @@ imports only ``repro_torch`` (from ``src/`` beside this file) and:
       ``reduced:`` line.  Kernels 1-3 are then timed at qwen3-4b's buffer
       (the ``qwen3-buffer`` rows) and kernels 1 and 3 at the 1024- and
       2048-feature cache shapes (the ``-f1024`` / ``-f2048`` rows);
+   j. the exchange's layouts at tinyllama-1.1b's full width (bf16 layers,
+      qgenx ``de``, ``layouts_path``): 3 int8 two_phase steps with
+      ``--num-buckets 4 --overlap bucketed`` and 3 with ``defer_tail``
+      (kernels 1-3 once per bucket and exchange, ``wire_bytes`` the sum of
+      ``bucket_wire_bytes_tree``, the recorder's ``b{i}/`` sums per
+      bucket), 2 with ``--no-exchange-plan``, 2 each with
+      ``--compress-mode leafwise`` at int8 and int4 (kernels 1 and 4 once
+      per leaf and exchange, the leafwise ``wire_bytes``); on a full-width
+      gradient-shaped tree, defer_tail's stale tail, the per-call mean bit
+      for bit the planned one, and one ``allreduce_fallback`` exchange
+      (kernels 1 and 3 once per leaf); then each at reduced size on the
+      card against the CPU port (``card_vs_cpu_runs``);
 5. runs each kernel at its main-path shape (the flat exchange buffer of
    tinyllama-1.1b, 2,148,532 rows x 512): kernels 1, 2, 3 in int8 as
    two_phase chains them, kernels 1 and 4 in int4 as gather does, and
@@ -168,6 +181,10 @@ imports only ``repro_torch`` (from ``src/`` beside this file) and:
    variants of kernels 1, 2 and 5 run beside their host-noise kernels
    (the ``/prng`` rows), and kernels 1 (int8) and 2 run again on phase
    4d's QAda table (the ``int8-qada`` / ``qada`` rows).
+   Kernels 1 and 4 also run at the leafwise exchange's two extreme
+   leaves (the ``leafwise-widest`` rows: ``unembed``, 2,048 rows of
+   32,000; ``leafwise-most-rows``: the query projection, 1,441,792 rows of
+   64), with phase 4j's launches.
    Each output is held against the plain version's on the same inputs
    (payload bytes and kernel 5's estimates exactly equal, f32 within rtol
    1e-6), and each kernel is timed beside its bound and its plain
@@ -848,7 +865,6 @@ def train_path(torch, batch: int, seq: int, shapes: list) -> dict:
     ``optda`` int4 gather and extra_adam layerwise.  Returns, per run, its
     launch counts, step times and peak device memory."""
     from repro_torch.core.exchange import make_exchange
-    from repro_torch.core.exchange_plan import size_of
     from repro_torch.kernels import cuda
     from repro_torch.launch.train import build_exchange_config, run
 
@@ -863,7 +879,6 @@ def train_path(torch, batch: int, seq: int, shapes: list) -> dict:
                               compression="int4", compress_mode="two_phase", steps=2), False),
     ]
     host_only = ("quantize_blocks", "dequant_reduce_requantize_blocks")
-    sizes = [size_of(s) for s in shapes]
     by_run = {}
     for tag, calls, spec, prng in runs:
         args = _train_args(arch="tinyllama-1.1b", dtype="bfloat16", batch=batch, seq=seq,
@@ -877,7 +892,7 @@ def train_path(torch, batch: int, seq: int, shapes: list) -> dict:
         counts = cuda.launch_counts()
         peak = torch.cuda.max_memory_allocated()
         ex = make_exchange(ex_cfg)
-        want_wire = calls * ex.compressor.wire_bytes_tree(sizes, 1, ex.cfg)
+        want_wire = calls * ex.compressor.wire_bytes_tree(shapes, 1, ex.cfg)
         if not all(math.isfinite(v) for v in out["loss"]):
             fail(f"non-finite loss in {tag} {spec}: {out['loss']}")
         if any(w != want_wire for w in out["wire_bytes"]):
@@ -1008,7 +1023,7 @@ def local_update_path(torch, batch: int, seq: int) -> dict:
                        checkpoint_every=CKPT_EVERY)
     ex = make_exchange(build_exchange_config(args))
     sizes = [size_of(s) for s in shapes]
-    per_call = ex.compressor.wire_bytes_tree(sizes, 1, ex.cfg)
+    per_call = ex.compressor.wire_bytes_tree(shapes, 1, ex.cfg)
     probe = 4.0 * min(ex.cfg.drift_probe, sum(sizes))
     try:
         gc.collect()
@@ -1144,7 +1159,6 @@ def qada_path(torch, batch: int, seq: int, shapes: list, fixed: dict) -> dict:
 
     from repro_torch.core import exchange as xmod
     from repro_torch.core.exchange import make_exchange, wire_trace_start, wire_trace_stop
-    from repro_torch.core.exchange_plan import size_of
     from repro_torch.core.quantization import uniform_levels, validate_levels
     from repro_torch.kernels import cuda, ref
     from repro_torch.kernels.dequant_reduce import dequant_reduce_requantize_blocks
@@ -1157,8 +1171,7 @@ def qada_path(torch, batch: int, seq: int, shapes: list, fixed: dict) -> dict:
                        level_update_every=QADA_EVERY)
     ex_cfg = build_exchange_config(args)
     ex = make_exchange(ex_cfg)
-    sizes = [size_of(s) for s in shapes]
-    per_call = ex.compressor.wire_bytes_tree(sizes, 1, ex_cfg) + 4 * ex_cfg.qada_bins
+    per_call = ex.compressor.wire_bytes_tree(shapes, 1, ex_cfg) + 4 * ex_cfg.qada_bins
     hist_ms, solve_ms, states = [], [], []
     tree_hist, solve, advance = xmod.Exchange._tree_hist, xmod._qada_solve, xmod.Exchange._advance
 
@@ -1884,7 +1897,12 @@ class _NumpyNoise:
 # phase 4h: the serving path (paged quantized KV-cache, continuous batching)
 # ---------------------------------------------------------------------------
 
-SERVE_ARGV = ("--batch", "16", "--requests", "48", "--prompt-len", "512", "--gen", "128",
+# 4h's requests, cut from 48 to 32 when phase 4j was added: the phase is
+# host-bound (110.7-153.9 s at 48 on an H100 80GB HBM3), and a third of its
+# requests keeps the script inside its time with every path and check
+SERVE_REQUESTS = 32
+SERVE_ARGV = ("--batch", "16", "--requests", str(SERVE_REQUESTS), "--prompt-len", "512",
+              "--gen", "128",
               "--page-size", "16")
 SERVE_FAULTS = "nan_logits@5:slot=2;page_corrupt@9:slot=7;slot_drop@12:slot=11"
 # a full forward and the paged decode sum in different orders: where their
@@ -2043,7 +2061,8 @@ def _exchange_run(torch, run, counted) -> dict:
 def serve_path(torch, reduced=False, device="cuda") -> dict:
     """Phase 4h: ``repro_torch.launch.serve`` at full width (tinyllama-1.1b,
     22 layers, f32 as the reference serves it, random weights from seed 0),
-    ``--batch 16 --requests 48 --prompt-len 512 --gen 128 --page-size 16``;
+    ``--batch 16 --requests 32 --prompt-len 512 --gen 128 --page-size 16``
+    (``SERVE_REQUESTS``, cut from 48; logged as a ``reduced:`` line);
     each run's model is freed before the next, so each peak is its own:
 
     (a) ``--kv-bits 8``, ``4`` and ``32``: every request answers; kernel 1
@@ -2070,12 +2089,15 @@ def serve_path(torch, reduced=False, device="cuda") -> dict:
     bytes.  Returns the runs' numbers and launch counts."""
     counted = device == "cuda"
     kw = dict(reduced=reduced, device=device)
+    log(f"  reduced: phase 4h --requests 48 -> {SERVE_REQUESTS} (the phase's time; every run "
+        f"and check kept)")
     runs = {}
     for bits in ("8", "4", "32"):
         run = _serve_run(torch, _serve_args("--kv-bits", bits, **kw), f"kv-bits {bits}", counted)
         eng = run["engine"]
-        if len(run["out"]) != 48 or eng.allocator.n_free != eng.pc.num_pages:
-            fail(f"phase 4h kv-bits {bits}: {len(run['out'])} of 48 requests answered")
+        if len(run["out"]) != SERVE_REQUESTS or eng.allocator.n_free != eng.pc.num_pages:
+            fail(f"phase 4h kv-bits {bits}: {len(run['out'])} of {SERVE_REQUESTS} requests "
+                 "answered")
         ratio = eng.fp32_cache_bytes / eng.cache_bytes
         if ratio < {"8": 2.0, "4": 4.0, "32": 1.0}[bits]:
             fail(f"phase 4h kv-bits {bits}: cache only {ratio:.2f}x below fp32")
@@ -2203,13 +2225,41 @@ def card_vs_cpu(torch) -> None:
     (CUDA kernels) vs on the CPU (plain versions), exact exchange, int8
     two_phase, and int8 two_phase with the device PRNG (the same seeds on
     both: the kernels' Philox against ``philox_uniform``)."""
+    from repro_torch.core.exchange import ExchangeConfig
+    from repro_torch.core.quantization import QuantConfig
+
+    int8 = ExchangeConfig(compressor="qgenx", mode="two_phase",
+                          quant=QuantConfig(num_levels=15, bits=8, bucket_size=512))
+    card_vs_cpu_runs(torch, ((ExchangeConfig(compressor="none"), 1e-4), (int8, 1e-3),
+                             (dataclasses.replace(int8, use_device_prng=True), 1e-3)))
+
+
+def _exchange_tag(ex_cfg) -> str:
+    """A config's name in the log: compressor, mode, bits and layout."""
+    tag = ex_cfg.compressor
+    if ex_cfg.quant is not None:
+        tag += f" int{ex_cfg.quant.bits} {ex_cfg.mode}"
+    if ex_cfg.use_device_prng:
+        tag += " device PRNG"
+    if ex_cfg.overlap != "off":
+        tag += f" {ex_cfg.num_buckets} buckets {ex_cfg.overlap}"
+    if not ex_cfg.use_plan:
+        tag += " per-call layout"
+    if ex_cfg.allreduce_fallback:
+        tag += " allreduce_fallback"
+    return tag
+
+
+def card_vs_cpu_runs(torch, configs) -> None:
+    """For each ``(exchange config, rtol)``: reduced tinyllama, the same
+    weights and noise, 2 qgenx de steps on the card (CUDA kernels) and on
+    the CPU (plain versions), losses and params held within ``rtol``."""
     import copy
 
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.core.exchange import ExchangeConfig, make_exchange
-    from repro_torch.core.quantization import QuantConfig
+    from repro_torch.core.exchange import make_exchange
     from repro_torch.data.pipeline import make_pipeline, to_device
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.model import build
@@ -2220,17 +2270,14 @@ def card_vs_cpu(torch) -> None:
     base = build(cfg, seed=0, device="cpu")
     batch_np = next(make_pipeline(cfg.vocab_size, 4, 32, seed=0))
     opt_cfg = OptimizerConfig(name="qgenx", gamma_scale=0.02, method="de")
-    int8 = ExchangeConfig(compressor="qgenx", mode="two_phase",
-                          quant=QuantConfig(num_levels=15, bits=8, bucket_size=512))
-    for ex_cfg, rtol in ((ExchangeConfig(compressor="none"), 1e-4), (int8, 1e-3),
-                         (dataclasses.replace(int8, use_device_prng=True), 1e-3)):
+    for ex_cfg, rtol in configs:
         results = []
         for dev in ("cpu", "cuda"):
             model = copy.deepcopy(base).to(dev)
             ex = make_exchange(ex_cfg)
             step = make_train_step(model, opt_cfg, ex)
             opt_state = qgenx_opt.init_qgenx_state(opt_cfg, model.param_leaves())
-            ex_state = ex.init_state(dev)
+            ex_state = ex.init_state(dev, template=model.param_leaves(), num_workers=1)
             noise = _NumpyNoise(7)
             losses = []
             for _ in range(2):
@@ -2239,7 +2286,7 @@ def card_vs_cpu(torch) -> None:
                 losses.append(float(m["loss"]))
             results.append((np.array(losses), [p.detach().cpu() for p in model.param_leaves()]))
         (lc, pc), (lg, pg) = results
-        what = ex_cfg.compressor + (" device PRNG" if ex_cfg.use_device_prng else "")
+        what = _exchange_tag(ex_cfg)
         if not np.allclose(lg, lc, rtol=rtol, atol=0):
             fail(f"card vs cpu loss ({what}): {lg} vs {lc}")
         worst = max(float((a - b).norm() / b.norm()) for a, b in zip(pg, pc))
@@ -2325,7 +2372,7 @@ def archs_train(torch, batch: int, seq: int, reduced=False, device="cuda") -> di
     ex = make_exchange(build_exchange_config(args))
     sizes = [size_of(s) for s in shapes]
     calls = 2 * len(out["loss"])
-    want_wire = 2 * ex.compressor.wire_bytes_tree(sizes, 1, ex.cfg)
+    want_wire = 2 * ex.compressor.wire_bytes_tree(shapes, 1, ex.cfg)
     if not all(math.isfinite(v) for v in out["loss"]):
         fail(f"phase 4i(a): non-finite loss {out['loss']}")
     if any(w != want_wire for w in out["wire_bytes"]):
@@ -2545,6 +2592,250 @@ def archs_kernel_rows(torch, train: dict, serve: dict, errs: dict) -> list:
                            {b: (d["writes"][b], d["reads"][b]) for b in (8, 4)}, errs,
                            suffix="-f2048")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 4j: the exchange's layouts (bucketed, per-call, leafwise)
+# ---------------------------------------------------------------------------
+
+LAYOUT_BUCKETS = 4
+LAYOUT_RUNS = (  # (tag, steps, extra train flags)
+    ("bucketed", 3, dict(compression="int8", num_buckets=LAYOUT_BUCKETS, overlap="bucketed")),
+    ("defer_tail", 3, dict(compression="int8", num_buckets=LAYOUT_BUCKETS,
+                           overlap="defer_tail")),
+    ("no-plan", 2, dict(compression="int8", no_exchange_plan=True)),
+    ("leafwise-int8", 2, dict(compression="int8", compress_mode="leafwise")),
+    ("leafwise-int4", 2, dict(compression="int4", compress_mode="leafwise")),
+)
+BUCKET_KERNELS = ("quantize_blocks", "dequant_reduce_requantize_blocks", "dequantize_blocks")
+LEAF_KERNELS = ("quantize_blocks", "dequant_reduce_blocks")
+
+
+def _bucket_sums(trace, buckets: int) -> list:
+    """The recorder's bytes per ``b{i}/`` prefix; fails on an operand
+    without one."""
+    sums = [0] * buckets
+    for name, nbytes in trace:
+        if not name.startswith("b") or "/" not in name:
+            fail(f"phase 4j: recorder operand {name!r} is not under a bucket prefix")
+        sums[int(name.split("/")[0][1:])] += nbytes
+    return sums
+
+
+def layouts_path(torch, batch: int, seq: int, shapes: list, fixed: dict) -> dict:
+    """Phase 4j: tinyllama-1.1b at full width (bf16 layers, K = 1) through
+    ``run()``, qgenx ``de``, the launch counts reset and the wire recorder
+    on around each run:
+
+    (a) 3 int8 two_phase steps with ``--num-buckets 4 --overlap bucketed``:
+        kernels 1-3 once per bucket and exchange (24 each), ``wire_bytes``
+        2 x the sum of ``bucket_wire_bytes_tree``, the recorder's ``b{i}/``
+        operands per bucket 6 x its entry, finite losses;
+    (b) the same with ``defer_tail``; then on a full-width gradient-shaped
+        tree (f32, random) two exchanges: the first applies an all-zero
+        tail, the second the first's ``pending`` (its bytes printed);
+    (c) 2 steps with ``--no-exchange-plan`` (kernels 1-3 once an
+        exchange: ``pmean_tree`` takes the plan under either layout); then
+        on the same tree the per-call config's mean equals the planned one
+        bit for bit under the same noise;
+    (d) 2 steps each with ``--compress-mode leafwise`` at int8 and int4:
+        kernels 1 and 4 once per leaf and exchange, no other kernel,
+        ``wire_bytes`` the leafwise bytes; then one exchange of the tree
+        with ``allreduce_fallback=True``: kernels 1 and 3 once per leaf;
+    (e) each of (a)-(d) at reduced size on the card and on the CPU, the
+        same weights and noise (``card_vs_cpu_runs``).
+
+    Prints step times and peaks beside phase 4a's int8 run (``fixed``).
+    Returns the runs' launch counts (summed), each run's own, and the
+    leafwise shapes for phase 5."""
+    from repro_torch.core import exchange as xmod
+    from repro_torch.core.exchange import ExchangeConfig, make_exchange
+    from repro_torch.core.noise import GeneratorNoise
+    from repro_torch.core.quantization import QuantConfig
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.train import build_exchange_config, run
+
+    meta = [torch.empty(s, device="meta") for s in shapes]  # shapes for the accounting
+    n_leaves = len(shapes)
+    total = {name: 0 for name in cuda.KERNELS}
+    by_run = {}
+    for tag, steps, flags in LAYOUT_RUNS:
+        args = _train_args(arch="tinyllama-1.1b", dtype="bfloat16", batch=batch, seq=seq,
+                           device="cuda", optimizer="qgenx", method="de", steps=steps,
+                           **flags)
+        ex = make_exchange(build_exchange_config(args))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launch_counts()
+        xmod.wire_trace_start()
+        out = run(args, log=lambda m: log(f"  {m}"))
+        trace = xmod.wire_trace_stop()
+        counts = cuda.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        calls = 2 * steps
+        per_bucket = ex.bucket_wire_bytes_tree(meta, 1) if ex.cfg.overlap != "off" else None
+        want_wire = ex.wire_bytes_tree(meta, 1)
+        if per_bucket is not None and want_wire != sum(per_bucket):
+            fail(f"phase 4j {tag}: wire_bytes_tree {want_wire} != sum {per_bucket}")
+        if out["wire_bytes"] != [2 * want_wire] * steps:
+            fail(f"phase 4j {tag}: wire_bytes {out['wire_bytes']} != 2 x {want_wire}")
+        if sum(b for _, b in trace) != calls * want_wire:
+            fail(f"phase 4j {tag}: the recorder saw {sum(b for _, b in trace)} bytes, not "
+                 f"{calls} x {want_wire}")
+        if per_bucket is not None:
+            sums = _bucket_sums(trace, LAYOUT_BUCKETS)
+            if sums != [calls * b for b in per_bucket]:
+                fail(f"phase 4j {tag}: recorder per bucket {sums} != {calls} x {per_bucket}")
+        if ex.cfg.mode == "leafwise":
+            want = {k: calls * n_leaves if k in LEAF_KERNELS else 0 for k in cuda.KERNELS}
+        else:
+            per = LAYOUT_BUCKETS if ex.cfg.overlap != "off" else 1
+            want = {k: calls * per if k in BUCKET_KERNELS else 0 for k in cuda.KERNELS}
+        if counts != want:
+            fail(f"phase 4j {tag}: launches {counts}, want {want}")
+        if not all(math.isfinite(v) for v in out["loss"]):
+            fail(f"phase 4j {tag}: non-finite loss {out['loss']}")
+        pending = out["ex_state"].pending
+        log(f"  phase 4j {tag}: loss={out['loss']} step_s={out['step_s']} peak_bytes={peak} "
+            f"wire_bytes={out['wire_bytes'][0]:.0f}"
+            + (f" per bucket {per_bucket}" if per_bucket else "")
+            + f" pending {pending.numel() * 4} B launches "
+            f"{[(k, v) for k, v in counts.items() if v]}")
+        log(f"phase 4j: {tag} step_s {out['step_s']} vs 4a int8 {fixed['step_s']}; peak "
+            f"{peak} bytes (4a int8: {fixed['peak_bytes']})")
+        by_run[tag] = {"counts": counts, "step_s": out["step_s"], "peak_bytes": peak}
+        for k, v in counts.items():
+            total[k] += v
+        del out, pending
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # exchange-level checks on a full-width gradient-shaped tree
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(51)
+    tree = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    int8 = QuantConfig(num_levels=15, bits=8, bucket_size=512)
+    ex = make_exchange(ExchangeConfig(quant=int8, num_buckets=LAYOUT_BUCKETS,
+                                      overlap="defer_tail"))
+    st = ex.init_state("cuda", template=tree, num_workers=1)
+    tail = ex.bucket_partition(tree)[0]
+    if st.pending.abs().max() != 0:
+        fail("phase 4j (b): the first pending is not zero")
+    mean, st1 = ex.pmean_tree(tree, st, GeneratorNoise.seeded(52, "cuda"))
+    if any(mean[i].abs().max() != 0 for i in tail):
+        fail("phase 4j (b): the first call's tail is not zero")
+    del mean
+    mean, st2 = ex.pmean_tree(tree, st1, GeneratorNoise.seeded(53, "cuda"))
+    sub = [tree[i] for i in tail]
+    want = ex.plan_for(sub).unpack(st1.pending, sub)
+    if not all(torch.equal(mean[i], w) for i, w in zip(tail, want)):
+        fail("phase 4j (b): the second call's tail is not the first call's pending")
+    log(f"  phase 4j (b): defer_tail over {sum(t.numel() for t in tree)} coordinates: the "
+        f"first tail zero, the second the first pending ({st1.pending.numel() * 4} B, tail "
+        f"bucket leaves {list(tail)})")
+    del mean, want, st, st1, st2, sub
+    gc.collect()
+    torch.cuda.empty_cache()
+    means = []
+    for use_plan in (True, False):
+        ex = make_exchange(ExchangeConfig(quant=int8, use_plan=use_plan))
+        mean, _ = ex.pmean_tree(tree, ex.init_state("cuda"), GeneratorNoise.seeded(54, "cuda"))
+        means.append(mean)
+        del mean
+    if not all(torch.equal(a, b) for a, b in zip(*means)):
+        fail("phase 4j (c): the per-call mean differs from the planned one")
+    log("  phase 4j (c): the per-call layout's mean equals the planned one bit for bit")
+    del means
+    gc.collect()
+    torch.cuda.empty_cache()
+    ex = make_exchange(ExchangeConfig(quant=int8, mode="leafwise", allreduce_fallback=True))
+    cuda.reset_launch_counts()
+    xmod.wire_trace_start()
+    mean, _ = ex.pmean_tree(tree, ex.init_state("cuda"), GeneratorNoise.seeded(55, "cuda"))
+    trace = xmod.wire_trace_stop()
+    counts = cuda.launch_counts()
+    want = {k: n_leaves if k in ("quantize_blocks", "dequantize_blocks") else 0
+            for k in cuda.KERNELS}
+    if counts != want or not all(torch.isfinite(m).all() for m in mean):
+        fail(f"phase 4j (d): allreduce_fallback launched {counts}, want {want}")
+    if sum(b for _, b in trace) != ex.wire_bytes_tree(meta, 1):
+        fail("phase 4j (d): allreduce_fallback's recorder differs from wire_bytes_tree")
+    log(f"  phase 4j (d): allreduce_fallback, one exchange: kernels 1 and 3 {n_leaves} "
+        f"launches each, {sum(b for _, b in trace)} B of f32 estimates")
+    for k, v in counts.items():
+        total[k] += v
+    by_run["fallback"] = {"counts": counts}
+    del mean, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) card vs cpu at reduced size, the same weights and noise
+    small = QuantConfig(num_levels=15, bits=8, bucket_size=512)
+    small4 = QuantConfig(num_levels=5, bits=4, bucket_size=512)
+    card_vs_cpu_runs(torch, (
+        (ExchangeConfig(quant=small, num_buckets=LAYOUT_BUCKETS, overlap="bucketed"), 1e-3),
+        (ExchangeConfig(quant=small, num_buckets=LAYOUT_BUCKETS, overlap="defer_tail"), 1e-3),
+        (ExchangeConfig(quant=small, use_plan=False), 1e-3),
+        (ExchangeConfig(quant=small, mode="leafwise"), 1e-3),
+        (ExchangeConfig(quant=small4, mode="leafwise"), 1e-3),
+        (ExchangeConfig(quant=small, mode="leafwise", allreduce_fallback=True), 1e-3)))
+    return {"total": total, "runs": by_run}
+
+
+def leafwise_kernel_rows(torch, shapes: list, layouts: dict, errs: dict) -> list:
+    """Kernels 1 and 4 as the leafwise exchange runs them (int8, q = inf,
+    K = 1, bucket = the leaf's trailing dim) at its two extreme leaves of
+    tinyllama-1.1b: the widest rows (``unembed``, 2,048 x 32,000) and the
+    most rows (the leaf with the most trailing rows: the attention's query
+    projection, 22 x 2,048 x 32 rows of 64).  Each held to its plain
+    version on the same inputs and timed; ``launches`` is phase 4j's int8
+    leafwise run's count at that leaf (one an exchange; the fallback
+    exchange's kernel 1 launch included for kernel 1)."""
+    from repro_torch.core.quantization import uniform_levels
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dequant_reduce import dequant_reduce_blocks
+    from repro_torch.kernels.quantize import quantize_blocks
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(61)
+    s, bits = 15, 8
+    lv = uniform_levels(s, dev)
+    kw = dict(num_symbols=s + 2, q_is_inf=True, bits=bits)
+    runs = layouts["runs"]
+    per_leaf = runs["leafwise-int8"]["counts"]["quantize_blocks"] // len(shapes)
+    widest = max(shapes, key=lambda sh: sh[-1])
+    most = max(shapes, key=lambda sh: math.prod(sh[:-1]))
+    out = []
+    for what, shape in (("widest", widest), ("most-rows", most)):
+        d = shape[-1]
+        n_rows = math.prod(shape[:-1])
+        n = n_rows * d
+        x = torch.randn((n_rows, d), generator=gen, device=dev)
+        r = torch.rand((n_rows, d), generator=gen, device=dev)
+        ms, got = _time_ms(torch, lambda: quantize_blocks(x, r, lv, **kw), 10)
+        plain, want = _time_ms(torch, lambda: ref.quantize_blocks_plain(x, r, lv, **kw), 2)
+        del x, r
+        torch.cuda.empty_cache()
+        err = _deq_err(torch, f"quantize leafwise {what}", got, want, lv, bits)
+        del want
+        out.append(kernel_row(f"quantize_blocks/leafwise-{what}", per_leaf + 1, ms, plain,
+                              max(err, errs["quantize_blocks"]), 4 * n + 4 * n + n + 4 * n_rows,
+                              n * (10 + 2 * s), f"{n_rows} x {d}, int8, leafwise {shape}"))
+        P, N = got[0].unsqueeze(0), got[1].unsqueeze(0)
+        del got
+        ms, got = _time_ms(torch, lambda: dequant_reduce_blocks(P, N, lv, num_symbols=s + 2,
+                                                                num_workers=1, bits=bits), 10)
+        plain, want = _time_ms(torch, lambda: ref.dequant_reduce_blocks_plain(P, N, lv,
+                                                                              bits=bits), 2)
+        err = _close(torch, f"dequant_reduce leafwise {what}", got, want)
+        out.append(kernel_row(f"dequant_reduce_blocks/leafwise-{what}", per_leaf, ms, plain,
+                              max(err, errs["dequant_reduce_blocks"]), n + 4 * n_rows + 4 * n,
+                              4 * n, f"{n_rows} x {d}, int8, leafwise {shape}"))
+        del P, N, got, want
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3038,10 +3329,19 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # phase 4j: the exchange's layouts (bucketed, defer_tail, per-call, leafwise)
+    t0 = phase_start(torch, "4j")
+    layouts = layouts_path(torch, args.batch, args.seq, shapes, by_run["int8"])
+    for k, n in layouts["total"].items():
+        launches[k] += n
+    log(f"phase 4j took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # phase 5: kernel times at the main-path shapes
     t0 = phase_start(torch, "5")
     rows = (kernel_times(torch, launches, errs, shapes, int_ops, qada) + gan_rows + [toy_row]
-            + serve_rows + arch_rows)
+            + serve_rows + arch_rows + leafwise_kernel_rows(torch, shapes, layouts, errs))
     log(f"phase 5 took {time.perf_counter() - t0:.1f} s")
 
     print(card, flush=True)  # again, beside the results (a log's tail keeps it)

@@ -89,9 +89,51 @@ non-finite histogram keeps the old tables and leaves that histogram in
 the new state, for the caller's finiteness check to reject, instead of
 raising.
 
-Not ported: mode ``leafwise``, bucketed overlap and the unplanned layout
-(``use_plan``), rejected by :class:`ExchangeConfig` (an unported value
-raises ``ValueError``, an unported field ``TypeError``).
+The layouts.  By default (``use_plan=True``, ``num_buckets=1``) a tree
+goes through one plan, packed once.  ``use_plan=False`` is the per-call
+layout.  The reference's per-call ``pmean_tree`` concatenates the leaves
+in f32 and lets the exchange pad the buffer (layerwise: one concatenation
+per size group); for every compressor that buffer is the plan's,
+coordinate for coordinate, with the same tables and draws, so the port's
+``pmean_tree`` goes through the plan under either layout and gives the
+reference's per-call means bit for bit.  What the flag changes is
+``compress_tree``, which then runs leaf by leaf (one launch of kernel 5 a
+leaf, each leaf with its own padding tail and its own draw), and the
+broadcast billed leaf by leaf; ``coded_bits_tree`` is the same under both
+(the one-segment compress plan is the concatenate-and-pad buffer).
+
+The bucketed exchange (``num_buckets`` = B >= 2 with ``overlap`` =
+``"bucketed"`` or ``"defer_tail"``): :func:`~repro_torch.core.exchange_plan.partition_leaf_ids`
+splits the leaves into B contiguous runs, each planned alone through the
+compressor's segment policy and exchanged as its own chain, highest bucket
+first (backprop order); each bucket asks the noise source for its draws
+in that order (the reference keys bucket ``bi`` with ``fold_in(key,
+bi)``), and its wire operands are recorded under ``b{bi}/``.  The
+reference leaves the overlap to XLA's scheduler; the port issues each
+bucket's last collectives with ``async_op=True`` and waits on them only
+when the bucket's mean is unpacked, after the next bucket's quantize has
+been launched (:func:`_pipeline`: two chains live at a time; a chain makes
+every noise draw before its collectives go out, so the draws come in the
+serial order and the means are the serial order's bit for bit).
+:class:`SingleWorker` has nothing to overlap.  Each bucket's range is
+named ``exchange/bucket{bi}`` for ``torch.profiler``.  Under
+``defer_tail`` bucket 0's mean is not applied: it goes into the new
+``ExchangeState.pending`` and its leaves get the old ``pending`` (zeros on
+the first sync), sized by ``init_state(template=, num_workers=)``; every
+``pmean_tree`` through this exchange swaps it, the re-centering one too,
+as in the reference.  A mask under ``defer_tail`` raises.
+
+The ``leafwise`` mode (qgenx and none only): each leaf is quantized in
+place in rows over its trailing dim (kernel 1 with ``bucket`` = that dim;
+int4 is packed only when the dim is even, else the 4-bit table's indices
+travel as int8, as the reference's ``pack4`` rule), the payload and norms
+are all-gathered and kernel 4 takes the mean of the K payloads.  With
+``allreduce_fallback`` each worker dequantizes its own payload (kernel 3)
+and the f32 estimate is all-reduced and divided by K.  The noise is one
+``noise.uniform(leaf.shape)`` draw a leaf, in leaf order, whatever
+``use_device_prng`` says (the reference's leafwise path draws with
+``jax.random`` and reaches no kernel).  Leaves are exchanged one after
+another.
 """
 
 from __future__ import annotations
@@ -109,9 +151,11 @@ from repro_torch.core import exchange_plan as xplan
 from repro_torch.core.coding import C_B
 from repro_torch.core.noise import draw_rounding
 from repro_torch.core.quantization import (
+    _NEAREST_NOISE,
     QuantConfig,
     bucket_norms,
     pad_to_buckets,
+    quantize_dequantize,
     uniform_levels,
     validate_levels,
 )
@@ -132,11 +176,46 @@ CODED_CHUNK_ROWS = 1 << 16
 # ---------------------------------------------------------------------------
 
 
+class _Ready:
+    """A collective that has already completed: ``wait()`` returns its
+    result."""
+
+    def __init__(self, out: torch.Tensor):
+        self.out = out
+
+    def wait(self) -> torch.Tensor:
+        return self.out
+
+
+class _InFlight:
+    """A collective issued with ``async_op=True``: ``wait()`` waits for it
+    and returns its result (``post`` of it, when given).  Holds the
+    operand until then."""
+
+    def __init__(self, work, operand: torch.Tensor, out: torch.Tensor, post=None):
+        self.work, self.operand, self.out, self.post = work, operand, out, post
+
+    def wait(self) -> torch.Tensor:
+        self.work.wait()
+        self.operand = None
+        return self.out if self.post is None else self.post(self.out)
+
+
 class SingleWorker:
-    """World size 1: every collective is the identity (no process group)."""
+    """World size 1: every collective is the identity (no process group).
+    ``start_*`` return a completed handle (nothing to overlap)."""
 
     size = 1
     rank = 0
+
+    def start_all_gather(self, t: torch.Tensor) -> _Ready:
+        return _Ready(t.unsqueeze(0))
+
+    def start_all_reduce_sum(self, t: torch.Tensor) -> _Ready:
+        return _Ready(t)
+
+    def start_all_reduce_mean(self, t: torch.Tensor) -> _Ready:
+        return _Ready(t)
 
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
         return t
@@ -153,12 +232,33 @@ class SingleWorker:
 
 class ProcessGroupComm:
     """Collectives over a ``torch.distributed`` process group (the default
-    group when ``group`` is None); the caller owns the group's lifetime."""
+    group when ``group`` is None); the caller owns the group's lifetime.
+    Each ``start_*`` issues its collective with ``async_op=True`` and
+    returns a handle whose ``wait()`` gives the result; the plain methods
+    wait at once."""
 
     def __init__(self, group=None):
         self.group = group
         self.size = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
+
+    def start_all_gather(self, t: torch.Tensor) -> _InFlight:
+        """[...] -> [K, ...] stacked in worker order."""
+        flat = t.contiguous().reshape(-1)
+        out = flat.new_empty((self.size * flat.numel(),))
+        gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+        work = gather(out, flat, group=self.group, async_op=True)
+        return _InFlight(work, flat, out.reshape(self.size, *t.shape))
+
+    def start_all_reduce_sum(self, t: torch.Tensor) -> _InFlight:
+        t = t.clone()
+        work = dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group, async_op=True)
+        return _InFlight(work, t, t)
+
+    def start_all_reduce_mean(self, t: torch.Tensor) -> _InFlight:
+        h = self.start_all_reduce_sum(t)
+        h.post = lambda s: s / self.size
+        return h
 
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
         """[K, ...] with row k destined to worker k -> [K, ...] with row j
@@ -169,20 +269,13 @@ class ProcessGroupComm:
         return out
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """[...] -> [K, ...] stacked in worker order."""
-        flat = t.contiguous().reshape(-1)
-        out = flat.new_empty((self.size * flat.numel(),))
-        gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-        gather(out, flat, group=self.group)
-        return out.reshape(self.size, *t.shape)
+        return self.start_all_gather(t).wait()
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
-        t = t.clone()
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
-        return t
+        return self.start_all_reduce_sum(t).wait()
 
     def all_reduce_mean(self, t: torch.Tensor) -> torch.Tensor:
-        return self.all_reduce_sum(t) / self.size
+        return self.start_all_reduce_mean(t).wait()
 
 
 # ---------------------------------------------------------------------------
@@ -195,9 +288,11 @@ class ExchangeConfig:
     """The exchange's static configuration (reference field names).
 
     Only the ported fields exist: a field of the reference that is not
-    ported yet (``allreduce_fallback``, ``use_plan``, ...) is an unknown
-    keyword and raises ``TypeError``; an unported value of a ported field
-    raises ``ValueError``.  ``quant`` is the qgenx quantizer, or
+    ported yet (``axis_name``, ``use_pallas``, ``interpret``) is an unknown
+    keyword and raises ``TypeError``; an invalid combination raises the
+    reference's ``ValueError`` (the checks of its ``__post_init__`` and of
+    ``Compressor.validate``, which the reference runs in
+    ``make_exchange``, both run here).  ``quant`` is the qgenx quantizer, or
     layerwise's low-bit one for leaves above ``layerwise_threshold``
     coordinates (default: 4 bit, s = 5, bucket 512); ``quant_small`` is
     layerwise's quantizer for the other leaves.  ``use_device_prng``: the
@@ -225,6 +320,15 @@ class ExchangeConfig:
     (each in (0, 1]).  A contractive compressor cannot re-center
     (``recenter_every`` must be 0): its memory tracks gradient
     innovations.
+
+    The layouts (the module docstring has the detail): ``mode`` may also
+    be ``"leafwise"`` (qgenx and none only), where ``allreduce_fallback``
+    all-reduces each worker's dequantized f32 estimate instead of
+    gathering the payloads; ``use_plan=False`` is the per-call layout;
+    ``num_buckets`` >= 2 with ``overlap`` ``"bucketed"`` or
+    ``"defer_tail"`` is the bucketed exchange (planned, flat modes, no
+    error feedback), and ``num_buckets=1, overlap="off"`` the default
+    monolithic one.
     """
 
     compressor: str = "qgenx"
@@ -243,13 +347,58 @@ class ExchangeConfig:
     qada_bisect_iters: int = 20
     rand_frac: float = 0.25
     ef_topk_frac: float = 0.25
+    allreduce_fallback: bool = False
+    use_plan: bool = True
+    num_buckets: int = 1
+    overlap: str = "off"
 
     def __post_init__(self):
         comp = get_compressor(self.compressor)
+        if self.mode not in ("gather", "two_phase", "leafwise"):
+            raise ValueError(f"unknown mode {self.mode!r}")
+        if self.overlap not in ("off", "bucketed", "defer_tail"):
+            raise ValueError(f"unknown overlap {self.overlap!r}")
+        if self.num_buckets < 1:
+            raise ValueError(f"num_buckets must be >= 1, got {self.num_buckets}")
+        if self.overlap != "off":
+            if self.num_buckets < 2:
+                raise ValueError(
+                    f"overlap={self.overlap!r} needs num_buckets >= 2 (one bucket has "
+                    "nothing to overlap); use overlap='off' for the monolithic exchange")
+            if not self.use_plan:
+                raise ValueError(
+                    "bucketed overlap requires use_plan=True: the bucket sub-plans ARE "
+                    "ExchangePlans (contiguous runs of whole segments) — there is no "
+                    "per-call-layout bucketing")
+            if self.mode == "leafwise":
+                raise ValueError(
+                    "mode='leafwise' has no flat buffer to bucket (each leaf is already "
+                    "an independent collective chain; XLA overlaps them natively) — "
+                    "bucketing applies to the gather/two_phase flat-buffer modes")
+        elif self.num_buckets > 1:
+            raise ValueError(
+                f"num_buckets={self.num_buckets} with overlap='off' is ambiguous — the "
+                "monolithic path ignores buckets; set overlap='bucketed' (or "
+                "'defer_tail') to enter the bucketed pipeline, or num_buckets=1 to be "
+                "explicit")
+        if self.allreduce_fallback and self.mode != "leafwise":
+            raise ValueError(
+                "allreduce_fallback is a leafwise-exchange escape hatch; "
+                f"mode={self.mode!r} would still all-gather/all-to-all and hit the "
+                "partial-manual partitioner abort — use mode='leafwise'")
+        if self.mode == "leafwise" and self.compressor not in ("qgenx", "none"):
+            raise ValueError(
+                f"compressor {self.compressor!r} ({comp.contract} contract) has no "
+                "sharding-preserving leafwise path; use mode='gather' or 'two_phase'")
+        if self.overlap != "off" and comp.has_error:
+            raise ValueError(
+                f"compressor {self.compressor!r} (contractive contract) cannot run the "
+                "bucketed overlapped exchange: its [num_workers, n] error memory "
+                "scatter-adds row offsets into the WHOLE-plan flat buffer atomically, and "
+                "bucketing would split that update across independently-keyed chains — "
+                "use overlap='off' (the EF path stays monolithic)")
         if self.compressor == "qgenx" and self.quant is None:
             raise ValueError("compressor='qgenx' requires ExchangeConfig.quant")
-        if self.mode not in ("gather", "two_phase"):
-            raise ValueError(f"mode {self.mode!r} is not ported (gather | two_phase)")
         if self.sync_every < 1:
             raise ValueError(f"sync_every must be >= 1, got {self.sync_every}")
         if self.drift_probe < 1:
@@ -285,7 +434,9 @@ class ExchangeState:
     here, read without a device sync), ``error`` (the contractive tier's
     ``[num_workers, n]`` error-feedback memory, replicated over the
     workers; a [1] placeholder for every other compressor) and ``pending``
-    (defer_tail slot; a [1] placeholder).
+    (``overlap="defer_tail"``: the f32 mean of the tail bucket's last
+    exchange, its padded plan length long, replicated over the workers,
+    applied at the next call; a [1] placeholder otherwise).
     """
 
     levels: torch.Tensor
@@ -360,6 +511,19 @@ def exchange_buffer_bytes(n: int, axis_size: int, cfg: QuantConfig,
             "gather_norms": 4 * nb_per_chunk,
         }
     raise ValueError(f"unknown mode {mode!r}")
+
+
+def leafwise_buffer_bytes(shape: tuple, cfg: QuantConfig) -> dict:
+    """Collective-operand bytes of one leaf of the leafwise exchange: the
+    payload keeps the leaf's shape (its trailing dim halved when int4 is
+    packed, which needs that dim even) and one f32 norm per trailing
+    row."""
+    d = shape[-1]
+    rows = 1
+    for s in shape[:-1]:
+        rows *= s
+    pack4 = cfg.bits == 4 and d % 2 == 0
+    return {"leaf_payload": rows * (d // 2 if pack4 else d), "leaf_norms": 4 * rows}
 
 
 def wire_bytes_per_device(n: int, axis_size: int, cfg: Optional[QuantConfig],
@@ -451,6 +615,116 @@ def theorem2_bits_traced(pmf: torch.Tensor, d: int, num_buckets: int) -> torch.T
 # ---------------------------------------------------------------------------
 
 
+# An exchange runs as a chain: a generator that makes every noise draw and
+# launches its kernels up to its last collectives, issues those
+# (``comm.start_*``), yields once, and when resumed waits on them, runs
+# its last kernel and returns its result.  ``_run`` drives one chain to its
+# end (the serial order); ``_pipeline`` keeps two in flight.
+
+
+def _resume(chain):
+    """Resume a chain past its yield; its result."""
+    try:
+        next(chain)
+    except StopIteration as stop:
+        return stop.value
+    raise RuntimeError("an exchange chain yielded twice")
+
+
+def _run(chain):
+    """Drive a chain to its result, serially."""
+    next(chain)
+    return _resume(chain)
+
+
+def _pipeline(items, start, scope=lambda item: contextlib.nullcontext()):
+    """Run one chain per item (``start(item)``), two deep: item i's chain
+    runs to its yield (its draws made, its kernels launched, its last
+    collectives in flight) before item i - 1's is resumed, so a collective
+    overlaps the next item's kernels.  Every chain makes its draws before
+    it yields, so the noise is asked for in the items' order, as serially.
+    ``scope(item)`` wraps each part of an item's chain.  Yields ``(item,
+    result)`` in the items' order."""
+    prev = None
+    for item in items:
+        with scope(item):
+            chain = start(item)
+            next(chain)
+        if prev is not None:
+            with scope(prev[0]):
+                result = _resume(prev[1])
+            yield prev[0], result
+        prev = (item, chain)
+    if prev is not None:
+        with scope(prev[0]):
+            result = _resume(prev[1])
+        yield prev[0], result
+
+
+def qgenx_chain(x: torch.Tensor, comm, levels: torch.Tensor, noise,
+                cfg: QuantConfig, mode: str = "two_phase", *,
+                use_device_prng: bool = False):
+    """The chain of :func:`qgenx_pmean` (see the note above it): the
+    all-to-all of ``two_phase`` is waited on at once, the final all-gather
+    (of either mode) over the yield."""
+    if mode == "leafwise":
+        raise ValueError("mode='leafwise' is a tree exchange; use pmean_tree")
+    if mode not in ("gather", "two_phase"):
+        raise ValueError(f"unknown mode {mode!r}")
+    K = comm.size
+    n = x.shape[0]
+    bucket = cfg.bucket_size
+    q_is_inf = cfg.q_is_inf
+    x = x.float()
+    if mode == "gather":
+        x2d, _ = pad_to_buckets(x, bucket)
+        del x
+        r, seed = draw_rounding(noise, x2d.shape, x2d.device, use_device_prng)
+        payload, norms = quantize_blocks(x2d, r, levels, num_symbols=cfg.num_symbols,
+                                         q_is_inf=q_is_inf, bits=cfg.bits, seed=seed)
+        del r, x2d
+        record_wire("gather_payload", payload)
+        record_wire("gather_norms", norms)
+        hp, hn = comm.start_all_gather(payload), comm.start_all_gather(norms)
+        del payload, norms
+        yield
+        mean2d = dequant_reduce_blocks(hp.wait(), hn.wait(), levels,
+                                       num_symbols=cfg.num_symbols, num_workers=K,
+                                       bits=cfg.bits)
+        return mean2d.reshape(-1)[:n]
+    # two_phase: pad to whole K-bucket quotas, K equal chunks of whole buckets
+    xq, _ = pad_to_buckets(x, K * bucket)
+    del x
+    nbpc = xq.shape[0]
+    x2d = xq.reshape(K * nbpc, bucket)
+    del xq
+    dev = x2d.device
+    r, seed = draw_rounding(noise, x2d.shape, dev, use_device_prng)
+    payload, norms = quantize_blocks(x2d, r, levels, num_symbols=cfg.num_symbols,
+                                     q_is_inf=q_is_inf, bits=cfg.bits, seed=seed)
+    del r, x2d
+    # row k of the [K, nbpc, P] payload is the chunk destined to worker k
+    payload, norms = payload.reshape(K, nbpc, -1), norms.reshape(K, nbpc)
+    record_wire("a2a_payload", payload)
+    record_wire("a2a_norms", norms)
+    p_t = comm.all_to_all(payload)
+    n_t = comm.all_to_all(norms)
+    del payload, norms
+    r2, seed2 = draw_rounding(noise, (nbpc, bucket), dev, use_device_prng)
+    ridx, rnorms = dequant_reduce_requantize_blocks(
+        p_t, n_t, levels, r2, num_symbols=cfg.num_symbols, num_workers=K,
+        q_is_inf=q_is_inf, bits=cfg.bits, seed=seed2)
+    del r2, p_t, n_t
+    record_wire("gather_payload", ridx)
+    record_wire("gather_norms", rnorms)
+    hi, hn = comm.start_all_gather(ridx), comm.start_all_gather(rnorms)
+    del ridx, rnorms
+    yield
+    out = dequantize_blocks(hi.wait().reshape(K * nbpc, -1), hn.wait().reshape(K * nbpc),
+                            levels, num_symbols=cfg.num_symbols, bits=cfg.bits)
+    return out.reshape(-1)[:n]
+
+
 def qgenx_pmean(x: torch.Tensor, comm, levels: torch.Tensor, noise,
                 cfg: QuantConfig, mode: str = "two_phase", *,
                 use_device_prng: bool = False) -> torch.Tensor:
@@ -459,54 +733,54 @@ def qgenx_pmean(x: torch.Tensor, comm, levels: torch.Tensor, noise,
     ``gather``: quantize -> all_gather -> dequant_reduce (kernels 1, 4).
     ``two_phase``: quantize -> all_to_all -> dequant_reduce_requantize ->
     all_gather -> dequantize (kernels 1, 2, 3).  With ``use_device_prng``
-    kernels 1 and 2 draw their noise from one seed each.
+    kernels 1 and 2 draw their noise from one seed each.  ``leafwise`` is a
+    tree exchange (:func:`qgenx_pmean_leafwise`) and raises here.
     """
+    return _run(qgenx_chain(x, comm, levels, noise, cfg, mode,
+                            use_device_prng=use_device_prng))
+
+
+def _leaf_pmean(g: torch.Tensor, comm, levels: torch.Tensor, noise, cfg: QuantConfig,
+                allreduce_fallback: bool) -> torch.Tensor:
+    """One leaf of :func:`qgenx_pmean_leafwise`."""
     K = comm.size
-    n = x.shape[0]
-    bucket = cfg.bucket_size
-    q_is_inf = cfg.q_is_inf
-    x = x.float()
-    if mode == "gather":
-        x2d, _ = pad_to_buckets(x, bucket)
-        r, seed = draw_rounding(noise, x2d.shape, x2d.device, use_device_prng)
-        payload, norms = quantize_blocks(x2d, r, levels, num_symbols=cfg.num_symbols,
-                                         q_is_inf=q_is_inf, bits=cfg.bits, seed=seed)
-        del r
-        record_wire("gather_payload", payload)
-        record_wire("gather_norms", norms)
-        mean2d = dequant_reduce_blocks(
-            comm.all_gather(payload), comm.all_gather(norms), levels,
-            num_symbols=cfg.num_symbols, num_workers=K, bits=cfg.bits)
-        return mean2d.reshape(-1)[:n]
-    if mode == "two_phase":
-        # pad to whole K-bucket quotas: K equal chunks of whole buckets
-        xq, _ = pad_to_buckets(x, K * bucket)
-        nbpc = xq.shape[0]
-        x2d = xq.reshape(K * nbpc, bucket)
-        r, seed = draw_rounding(noise, x2d.shape, x2d.device, use_device_prng)
-        payload, norms = quantize_blocks(x2d, r, levels, num_symbols=cfg.num_symbols,
-                                         q_is_inf=q_is_inf, bits=cfg.bits, seed=seed)
-        del r
-        # row k of the [K, nbpc, P] payload is the chunk destined to worker k
-        payload, norms = payload.reshape(K, nbpc, -1), norms.reshape(K, nbpc)
-        record_wire("a2a_payload", payload)
-        record_wire("a2a_norms", norms)
-        p_t = comm.all_to_all(payload)
-        n_t = comm.all_to_all(norms)
+    d = g.shape[-1]
+    x2d = g.reshape(-1, d)
+    if cfg.stochastic:
+        r = noise.uniform(tuple(g.shape), g.device).reshape(-1, d)
+    else:
+        r = torch.full(x2d.shape, _NEAREST_NOISE, dtype=torch.float32, device=g.device)
+    # int4 is packed only on an even trailing dim (the reference's pack4);
+    # otherwise the 4-bit table's indices travel as int8
+    bits = 4 if cfg.bits == 4 and d % 2 == 0 else 8
+    payload, norms = quantize_blocks(x2d, r, levels, num_symbols=cfg.num_symbols,
+                                     q_is_inf=cfg.q_is_inf, bits=bits)
+    del r, x2d
+    if allreduce_fallback:
+        hat = dequantize_blocks(payload, norms, levels, num_symbols=cfg.num_symbols,
+                                bits=bits)
         del payload, norms
-        r2, seed2 = draw_rounding(noise, (nbpc, bucket), x2d.device, use_device_prng)
-        ridx, rnorms = dequant_reduce_requantize_blocks(
-            p_t, n_t, levels, r2, num_symbols=cfg.num_symbols, num_workers=K,
-            q_is_inf=q_is_inf, bits=cfg.bits, seed=seed2)
-        del r2, p_t, n_t
-        record_wire("gather_payload", ridx)
-        record_wire("gather_norms", rnorms)
-        g_idx = comm.all_gather(ridx).reshape(K * nbpc, -1)
-        g_norms = comm.all_gather(rnorms).reshape(K * nbpc)
-        out = dequantize_blocks(g_idx, g_norms, levels, num_symbols=cfg.num_symbols,
-                                bits=cfg.bits)
-        return out.reshape(-1)[:n]
-    raise ValueError(f"unknown mode {mode!r}")
+        record_wire("leaf_fallback", hat)
+        mean = _div_exact(comm.all_reduce_sum(hat), K)
+    else:
+        record_wire("leaf_payload", payload)
+        record_wire("leaf_norms", norms)
+        mean = dequant_reduce_blocks(comm.all_gather(payload), comm.all_gather(norms), levels,
+                                     num_symbols=cfg.num_symbols, num_workers=K, bits=bits)
+    return mean.reshape(g.shape).to(g.dtype)
+
+
+def qgenx_pmean_leafwise(leaves: list, comm, levels: torch.Tensor, noise,
+                         cfg: QuantConfig, *, allreduce_fallback: bool = False) -> list:
+    """The leafwise quantized mean (the reference's
+    ``_qgenx_pmean_leafwise``): each leaf quantized in place in rows over
+    its trailing dim (kernel 1, bucket = that dim, one ``noise.uniform``
+    draw of the leaf's shape, in leaf order), the int8 / packed-int4
+    payload and the row norms all-gathered and averaged by kernel 4; with
+    ``allreduce_fallback``, this worker's payload dequantized (kernel 3),
+    all-reduced in f32 and divided by K.  Each mean is cast to its leaf's
+    dtype."""
+    return [_leaf_pmean(g, comm, levels, noise, cfg, allreduce_fallback) for g in leaves]
 
 
 # ---------------------------------------------------------------------------
@@ -541,7 +815,12 @@ class NoneCompressor:
     The base of every compressor: ``contract`` is ``"unbiased"``
     (E[compress(v)] = v) or ``"contractive"`` (E||C(v) - v||^2 <=
     (1 - alpha)||v||^2 with alpha = :meth:`contraction_alpha`; those set
-    ``has_error`` and carry the per-worker memory ``ExchangeState.error``)."""
+    ``has_error`` and carry the per-worker memory ``ExchangeState.error``).
+
+    :meth:`chain_flat` exchanges one packed buffer as a chain (see the
+    note above :func:`qgenx_chain`): the bucketed exchange runs one a
+    bucket, and :meth:`pmean_leaves` one for the whole plan.  The exact
+    mean reduces leaf by leaf instead, and in ``leafwise`` mode too."""
 
     name = "none"
     contract = "unbiased"
@@ -565,8 +844,22 @@ class NoneCompressor:
     def plan_groups(self, leaves_key, cfg):
         return ((tuple(range(len(leaves_key))), None, 0, None),)
 
+    def chain_flat(self, flat, plan, exchange, state, noise):
+        h = exchange.comm.start_all_reduce_mean(flat)
+        del flat
+        yield
+        return h.wait()
+
+    def _pmean_planned(self, leaves, exchange, state, noise):
+        plan = exchange.plan_for(leaves)
+        return plan.unpack(_run(self.chain_flat(plan.pack(leaves), plan, exchange, state,
+                                                noise)), leaves)
+
     def pmean_leaves(self, leaves, exchange, state, noise):
         return [exchange.comm.all_reduce_mean(l) for l in leaves]
+
+    def pmean_leafwise(self, leaves, exchange, state, noise):
+        return self.pmean_leaves(leaves, exchange, state, noise)
 
     def compress_tree(self, leaves, cfg, levels, noise, lead):
         return list(leaves)
@@ -574,8 +867,8 @@ class NoneCompressor:
     def wire_bytes(self, n, axis_size, cfg):
         return 2 * (axis_size - 1) / axis_size * 4.0 * n
 
-    def wire_bytes_tree(self, sizes, axis_size, cfg):
-        return self.wire_bytes(sum(sizes), axis_size, cfg)
+    def wire_bytes_tree(self, shapes, axis_size, cfg):
+        return self.wire_bytes(sum(xplan.size_of(s) for s in shapes), axis_size, cfg)
 
     def compress_wire_bytes(self, n, cfg):
         return 4.0 * n
@@ -583,7 +876,8 @@ class NoneCompressor:
 
 class QgenxCompressor(NoneCompressor):
     """The paper's bucketed stochastic quantization (Definition 1): one plan
-    segment, every leaf, the primary level table."""
+    segment, every leaf, the primary level table; in ``leafwise`` mode
+    :func:`qgenx_pmean_leafwise`."""
 
     name = "qgenx"
     has_levels = True
@@ -595,29 +889,67 @@ class QgenxCompressor(NoneCompressor):
     def plan_groups(self, leaves_key, cfg):
         return ((tuple(range(len(leaves_key))), cfg.quant, 0, None),)
 
-    def pmean_leaves(self, leaves, exchange, state, noise):
-        plan = exchange.plan_for(leaves)
-        mean = qgenx_pmean(plan.pack(leaves), exchange.comm, state.levels, noise,
-                           exchange.cfg.quant, exchange.cfg.mode,
-                           use_device_prng=exchange.cfg.use_device_prng)
-        return plan.unpack(mean, leaves)
+    def chain_flat(self, flat, plan, exchange, state, noise):
+        cfg = exchange.cfg
+        chain = qgenx_chain(flat, exchange.comm, state.levels, noise, cfg.quant, cfg.mode,
+                            use_device_prng=cfg.use_device_prng)
+        del flat  # the chain frees the buffer once it is quantized
+        return (yield from chain)
 
-    def _segment_table(self, seg, levels, device):
-        return levels if levels is not None else _uniform_table(seg.quant.num_levels, device)
+    def pmean_leaves(self, leaves, exchange, state, noise):
+        """The plan's buffer, under either layout (see the module
+        docstring)."""
+        return self._pmean_planned(leaves, exchange, state, noise)
+
+    def pmean_leafwise(self, leaves, exchange, state, noise):
+        return qgenx_pmean_leafwise(leaves, exchange.comm, state.levels, noise,
+                                    exchange.cfg.quant,
+                                    allreduce_fallback=exchange.cfg.allreduce_fallback)
+
+    def _table(self, quant, levels, device):
+        """The level table ``compress_tree`` uses with quantizer ``quant``:
+        the caller's, else the uniform one."""
+        return levels if levels is not None else _uniform_table(quant.num_levels, device)
+
+    def _leaf_quant(self, n, cfg):
+        """The quantizer of an n-coordinate leaf."""
+        return cfg.quant
 
     def compress_tree(self, leaves, cfg, levels, noise, lead):
-        """One segment-fused quantize∘dequantize over the packed buffer."""
+        """One segment-fused quantize∘dequantize over the packed buffer; under
+        ``use_plan=False`` leaf by leaf, one launch of kernel 5 a leaf."""
+        dev = str(leaves[0].device)
+        if not cfg.use_plan:
+            out = []
+            for l in leaves:
+                q = self._leaf_quant(l[0].numel() if lead else l.numel(), cfg)
+                out.append(quantize_dequantize(l, self._table(q, levels, dev), noise, q,
+                                               workers=bool(lead)).to(l.dtype))
+            return out
         lk = xplan.leaf_key(leaves, lead)
         plan = xplan.build_plan(lk, self.plan_groups(lk, cfg), cfg.mode, 1, "compress")
         batch = tuple(leaves[0].shape[:lead])
-        dev = str(leaves[0].device)
-        tables = tuple(self._segment_table(seg, levels, dev) for seg in plan.segments)
+        tables = tuple(self._table(seg.quant, levels, dev) for seg in plan.segments)
         hat = xplan.fused_compress(plan, plan.pack(leaves, batch).reshape(-1, plan.total),
                                    tables, noise, use_device_prng=cfg.use_device_prng)
         return plan.unpack(hat.reshape(*batch, plan.total), leaves)
 
     def wire_bytes(self, n, axis_size, cfg):
+        if cfg.mode == "leafwise":
+            if cfg.allreduce_fallback:
+                return 4.0 * n  # the f32 all-reduce operand is the payload
+            return float(sum(leafwise_buffer_bytes((n,), cfg.quant).values()))
         return float(sum(exchange_buffer_bytes(n, axis_size, cfg.quant, cfg.mode).values()))
+
+    def wire_bytes_tree(self, shapes, axis_size, cfg):
+        """Under ``leafwise``, leaf by leaf (each payload keeps its leaf's
+        shape); otherwise one exchange of the whole tree."""
+        if cfg.mode != "leafwise":
+            return super().wire_bytes_tree(shapes, axis_size, cfg)
+        shapes = [tuple(s.shape) if hasattr(s, "shape") else tuple(s) for s in shapes]
+        if cfg.allreduce_fallback:
+            return float(sum(4.0 * xplan.size_of(s) for s in shapes))
+        return float(sum(sum(leafwise_buffer_bytes(s, cfg.quant).values()) for s in shapes))
 
     def compress_wire_bytes(self, n, cfg):
         return float(cfg.quant.payload_bytes(n))
@@ -651,35 +983,44 @@ class LayerwiseCompressor(QgenxCompressor):
                      for gid, (ids, qc, table) in enumerate(((big, lo, 1), (small, hi, 0)))
                      if ids)
 
-    def pmean_leaves(self, leaves, exchange, state, noise):
-        """One qgenx exchange per plan segment, in segment order, each on
-        its pre-padded slice of the shared buffer with its own table (the
-        reference keys segment ``seg`` with ``fold_in(key, seg.key_tag)``,
-        so the noise is drawn in segment order)."""
-        plan = exchange.plan_for(leaves)
-        flat = plan.pack(leaves)
-        outs = [qgenx_pmean(flat[seg.start: seg.stop], exchange.comm,
-                            state.levels_lo if seg.table == 1 else state.levels, noise,
-                            seg.quant, exchange.cfg.mode,
-                            use_device_prng=exchange.cfg.use_device_prng)
-                for seg in plan.segments]
+    def chain_flat(self, flat, plan, exchange, state, noise):
+        """One qgenx exchange per plan segment, each on its pre-padded slice
+        of the shared buffer with its own table (the reference keys segment
+        ``seg`` with ``fold_in(key, seg.key_tag)``, so the noise is drawn
+        in segment order): every segment's chain is started, then each is
+        resumed in turn."""
+        cfg = exchange.cfg
+        chains = []
+        for seg in plan.segments:
+            chain = qgenx_chain(flat[seg.start: seg.stop], exchange.comm,
+                                state.levels_lo if seg.table == 1 else state.levels, noise,
+                                seg.quant, cfg.mode, use_device_prng=cfg.use_device_prng)
+            next(chain)
+            chains.append(chain)
         del flat
-        return plan.unpack(outs[0] if len(outs) == 1 else torch.cat(outs), leaves)
+        yield
+        outs = [_resume(c) for c in chains]
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
 
-    def _segment_table(self, seg, levels, device):
-        """The caller's table when it fits this segment's quantizer; the
-        uniform table otherwise (the reference's ``_segment_table``)."""
-        if levels is not None and levels.shape[0] == seg.quant.num_symbols:
+    def _table(self, quant, levels, device):
+        """The caller's table when it fits this quantizer; the uniform table
+        otherwise (the reference's ``_segment_table`` and ``compress``)."""
+        if levels is not None and levels.shape[0] == quant.num_symbols:
             return levels
-        return _uniform_table(seg.quant.num_levels, device)
+        return _uniform_table(quant.num_levels, device)
+
+    def _leaf_quant(self, n, cfg):
+        """The size class's quantizer: the low-bit one above the threshold."""
+        lo, hi = self._cfgs(cfg)
+        return lo if n > cfg.layerwise_threshold else hi
 
     def wire_bytes(self, n, axis_size, cfg):
-        lo, hi = self._cfgs(cfg)
-        qcfg = lo if n > cfg.layerwise_threshold else hi
-        return float(sum(exchange_buffer_bytes(n, axis_size, qcfg, cfg.mode).values()))
+        return float(sum(exchange_buffer_bytes(n, axis_size, self._leaf_quant(n, cfg),
+                                               cfg.mode).values()))
 
-    def wire_bytes_tree(self, sizes, axis_size, cfg):
+    def wire_bytes_tree(self, shapes, axis_size, cfg):
         lo, hi = self._cfgs(cfg)
+        sizes = [xplan.size_of(s) for s in shapes]
         total = 0.0
         for qcfg, group in ((lo, [s for s in sizes if s > cfg.layerwise_threshold]),
                             (hi, [s for s in sizes if s <= cfg.layerwise_threshold])):
@@ -689,8 +1030,7 @@ class LayerwiseCompressor(QgenxCompressor):
         return float(total)
 
     def compress_wire_bytes(self, n, cfg):
-        lo, hi = self._cfgs(cfg)
-        return float((lo if n > cfg.layerwise_threshold else hi).payload_bytes(n))
+        return float(self._leaf_quant(n, cfg).payload_bytes(n))
 
     def refresh_tables(self, levels, levels_lo, hist, cfg):
         """Both tables adapt from the same (table-independent) histogram."""
@@ -804,9 +1144,7 @@ class RandKCompressor(_SparseCompressor):
     def _k(self, n, cfg):
         return _randk_k(n, cfg)
 
-    def pmean_leaves(self, leaves, exchange, state, noise):
-        plan = exchange.plan_for(leaves)
-        flat = plan.pack(leaves)
+    def chain_flat(self, flat, plan, exchange, state, noise):
         n = flat.shape[0]
         k = self._k(n, exchange.cfg)
         idx = self._support(flat, k, exchange.cfg, noise)
@@ -815,12 +1153,19 @@ class RandKCompressor(_SparseCompressor):
         record_wire("randk_vals", vals)
         record_wire("randk_idx", idx)
         comm = exchange.comm
-        all_vals, all_idx = comm.all_gather(vals), comm.all_gather(idx)
+        hv, hi = comm.start_all_gather(vals), comm.start_all_gather(idx)
         del vals, idx
+        yield
+        all_vals, all_idx = hv.wait(), hi.wait()
         out = torch.zeros((n,), dtype=torch.float32, device=all_vals.device)
         for j in range(comm.size):
             out.index_add_(0, all_idx[j], all_vals[j])
-        return plan.unpack(_div_exact(out, comm.size), leaves)
+        return _div_exact(out, comm.size)
+
+    def pmean_leaves(self, leaves, exchange, state, noise):
+        """The plan's buffer is the leaves' plain concatenation, so the
+        per-call layout (``use_plan=False``) is the same exchange."""
+        return self._pmean_planned(leaves, exchange, state, noise)
 
 
 class _ErrorFeedbackCompressor(_SparseCompressor):
@@ -995,6 +1340,30 @@ def _renorm_tree(leaves: list, renorm: torch.Tensor) -> list:
 
 
 # ---------------------------------------------------------------------------
+# The bucketed exchange
+# ---------------------------------------------------------------------------
+
+
+def _check_pending(name: str, pending: torch.Tensor, total: int) -> None:
+    """The defer_tail slot must be the tail bucket's padded plan length (a
+    placeholder reaching the exchange is a pointed error)."""
+    if pending.dim() != 1 or pending.shape[0] != total:
+        raise ValueError(
+            f"compressor {name!r} with overlap='defer_tail' needs a pending-tail buffer of "
+            f"shape [{total}] (the tail bucket's padded plan length), found "
+            f"{tuple(pending.shape)}; initialize the state with "
+            "ex.init_state(device, template=params, num_workers=K)")
+
+
+@contextlib.contextmanager
+def _bucket_scope(bi: int):
+    """Bucket ``bi``'s work: named ``exchange/bucket{bi}`` for
+    ``torch.profiler``, its wire operands recorded under ``b{bi}/``."""
+    with torch.profiler.record_function(f"exchange/bucket{bi}"), wire_scope(f"b{bi}/"):
+        yield
+
+
+# ---------------------------------------------------------------------------
 # The Exchange object
 # ---------------------------------------------------------------------------
 
@@ -1019,7 +1388,9 @@ class Exchange:
         pytree) and ``num_workers`` (K) size a contractive compressor's
         zero ``[K, n]`` error memory, n the template's coordinate count;
         without them it is a [1] placeholder, which the exchange refuses.
-        The unbiased compressors ignore both."""
+        Under ``overlap="defer_tail"`` they size the zero ``pending`` slot
+        too (the tail bucket's padded plan length at K workers); the other
+        configs ignore both."""
         lv, lv_lo = self.compressor.init_levels(self.cfg, device)
         bins = self.cfg.qada_bins if self.cfg.level_schedule == "qada" else 1
         n = None
@@ -1028,7 +1399,23 @@ class Exchange:
         return ExchangeState(levels=lv, levels_lo=lv_lo,
                              hist=torch.zeros((bins,), dtype=torch.float32, device=device),
                              step=0, error=self.compressor.init_error(n, num_workers, device),
-                             pending=_null_error(device))
+                             pending=self._init_pending(template, num_workers, device))
+
+    def _init_pending(self, template, num_workers, device) -> torch.Tensor:
+        """The zero defer_tail slot, or the [1] placeholder (other overlaps,
+        or no template: the exchange then refuses it)."""
+        if self.cfg.overlap != "defer_tail" or template is None or num_workers is None:
+            return _null_error(device)
+        leaves = tree_flatten(template)[0]
+        tail = [leaves[i] for i in self.bucket_partition(leaves)[0]]
+        return torch.zeros((self.plan_for(tail, "pmean", num_workers).total,),
+                           dtype=torch.float32, device=device)
+
+    def bucket_partition(self, leaves) -> tuple:
+        """The bucketed exchange's contiguous split of a leaf list (leaf-id
+        tuples), shared by the exchange, its accounting and ``pending``."""
+        return xplan.partition_leaf_ids(tuple(xplan.size_of(l) for l in leaves),
+                                        self.cfg.num_buckets)
 
     # -- QAda ------------------------------------------------------------
 
@@ -1046,6 +1433,19 @@ class Exchange:
         hist = None
         for g in leaves:
             v2d, _ = pad_to_buckets(g.reshape(-1).float(), q.bucket_size)
+            h = qada.normalized_coord_histogram(v2d, bucket_norms(v2d, q.q_norm),
+                                                bins=self.cfg.qada_bins)
+            del v2d
+            hist = h if hist is None else hist + h
+        return hist
+
+    def _leafwise_hist(self, leaves) -> torch.Tensor:
+        """The same over the leafwise exchange's rows: each leaf in rows of
+        its trailing dim, no padding."""
+        q = self._hist_quant()
+        hist = None
+        for g in leaves:
+            v2d = g.reshape(-1, g.shape[-1]).float()
             h = qada.normalized_coord_histogram(v2d, bucket_norms(v2d, q.q_norm),
                                                 bins=self.cfg.qada_bins)
             del v2d
@@ -1110,24 +1510,71 @@ class Exchange:
         the plan into one buffer and exchanges it; layerwise exchanges each
         segment of that buffer; randk and the contractive tier exchange k
         coordinates of the packed buffer, the latter threading (and
-        updating in place) ``state.error``.
+        updating in place) ``state.error``.  Under ``use_plan=False``,
+        ``leafwise`` and the bucketed overlaps the layouts of the module
+        docstring apply; ``defer_tail`` returns the new ``pending`` in the
+        state.
 
         ``mask`` (this worker's f32 liveness scalar, or None) excludes a
         dropped worker and renormalizes the mean over the alive set;
         ``guarded`` lets a QAda refresh meet a non-finite histogram without
         raising (see the module docstring)."""
         leaves, spec = tree_flatten(tree)
+        if self.cfg.mode == "leafwise":
+            if mask is not None:
+                leaves = _mask_tree(leaves, mask)
+            out = self.compressor.pmean_leafwise(leaves, self, state, noise)
+            hist = self._leafwise_hist(leaves) if self._qada_active() else None
+            out, state = self._finish(out, state, hist, mask, guarded)
+            return tree_unflatten(spec, out), state
         if self.compressor.has_error:
             self._reject_mask(mask)
             out, err = self.compressor.pmean_tree_ef(leaves, self, state, noise)
             return tree_unflatten(spec, out), dataclasses.replace(self._advance(state),
                                                                   error=err)
+        if mask is not None and self.cfg.overlap == "defer_tail":
+            raise ValueError(
+                "overlap='defer_tail' does not support partial-participation masks: the "
+                "applied tail mean is one sync stale, and renormalizing it over THIS "
+                "step's alive set would rescale a buffer aggregated under a different "
+                "one — use overlap='bucketed' with masks")
         if mask is not None:
             leaves = _mask_tree(leaves, mask)
-        out = self.compressor.pmean_leaves(leaves, self, state, noise)
+        pending = state.pending
+        if self.cfg.overlap != "off":
+            out, pending = self._pmean_bucketed(leaves, state, noise)
+        else:
+            out = self.compressor.pmean_leaves(leaves, self, state, noise)
         hist = self._tree_hist(leaves) if self._qada_active() else None
         out, state = self._finish(out, state, hist, mask, guarded)
-        return tree_unflatten(spec, out), state
+        return tree_unflatten(spec, out), dataclasses.replace(state, pending=pending)
+
+    def _pmean_bucketed(self, leaves, state: ExchangeState, noise):
+        """The bucketed exchange: one chain per contiguous bucket, each
+        planned on its own, highest bucket first, pipelined two deep
+        (:func:`_pipeline`).  Under ``defer_tail`` bucket 0's mean becomes
+        the new ``pending`` and its leaves get (a copy of) the old one.
+        Returns ``(mean leaves, new pending)``."""
+        buckets = self.bucket_partition(leaves)
+        plans = [self.plan_for([leaves[i] for i in ids]) for ids in buckets]
+        defer = self.cfg.overlap == "defer_tail"
+        if defer:
+            _check_pending(self.cfg.compressor, state.pending, plans[0].total)
+
+        def start(bi):
+            sub = [leaves[i] for i in buckets[bi]]
+            return self.compressor.chain_flat(plans[bi].pack(sub), plans[bi], self, state,
+                                              noise)
+
+        out = [None] * len(leaves)
+        pending = state.pending
+        for bi, mean in _pipeline(range(len(buckets) - 1, -1, -1), start, _bucket_scope):
+            if defer and bi == 0:
+                pending, mean = mean, state.pending.clone()
+            sub = [leaves[i] for i in buckets[bi]]
+            for i, m in zip(buckets[bi], plans[bi].unpack(mean, sub)):
+                out[i] = m
+        return out, pending
 
     def _reject_mask(self, mask) -> None:
         """Error feedback with partial participation is undefined: a dead
@@ -1155,9 +1602,13 @@ class Exchange:
                       workers: bool = False):
         """Per-worker estimate of a pytree, no collectives: for the level-
         table compressors one fused quantize∘dequantize over the planned
-        buffer (kernel 5); for the sparse ones each leaf on its own (one
-        support draw a leaf, worker by worker), the contractive tier's
-        being its bare contraction C (no rescale, biased).
+        buffer (kernel 5), or under ``use_plan=False`` one launch of kernel 5
+        a leaf (each leaf with its own padding tail; its draws are asked
+        for leaf by leaf, worker by worker within a leaf, always as noise
+        arrays, as the reference's per-leaf path); for the sparse ones each
+        leaf on its own (one support draw a leaf, worker by worker), the
+        contractive tier's being its bare contraction C (no rescale,
+        biased).
 
         ``levels=None`` takes the uniform tables.  With ``workers=True``
         every leaf carries a leading worker dim and all workers' buffers go
@@ -1191,10 +1642,26 @@ class Exchange:
 
     def wire_bytes_tree(self, tree, axis_size: int) -> float:
         """The same for one ``pmean_tree`` of this pytree (the layerwise
-        policy bills each size group as its own exchange)."""
-        sizes = [xplan.size_of(l) for l in tree_flatten(tree)[0]]
-        return (self.compressor.wire_bytes_tree(sizes, axis_size, self.cfg)
+        policy bills each size group as its own exchange, ``leafwise`` each
+        leaf; the bucketed exchange is the sum of
+        :meth:`bucket_wire_bytes_tree`)."""
+        if self.cfg.overlap != "off":
+            return (float(sum(self.bucket_wire_bytes_tree(tree, axis_size)))
+                    + self._qada_wire_bytes())
+        shapes = [tuple(l.shape) for l in tree_flatten(tree)[0]]
+        return (self.compressor.wire_bytes_tree(shapes, axis_size, self.cfg)
                 + self._qada_wire_bytes())
+
+    def bucket_wire_bytes_tree(self, tree, axis_size: int) -> list:
+        """Per bucket, the collective-operand bytes of one bucketed
+        ``pmean_tree``: entry i is what the recorder's ``b{i}/`` operands
+        sum to (each bucket billed as its own monolithic exchange, with its
+        own padding)."""
+        leaves = tree_flatten(tree)[0]
+        mono = dataclasses.replace(self.cfg, num_buckets=1, overlap="off")
+        return [float(self.compressor.wire_bytes_tree([tuple(leaves[i].shape) for i in ids],
+                                                      axis_size, mono))
+                for ids in self.bucket_partition(leaves)]
 
     def compress_wire_bytes(self, n: int) -> float:
         """Bytes one worker broadcasts for one compressed n-vector."""
@@ -1207,7 +1674,9 @@ class Exchange:
         rounding over the bucket-padded buffer of the ``compress`` plan
         (the coordinates the fixed-width payload pays for), an f32 scalar.
         0.0 for every compressor but qgenx (layerwise would need a pmf
-        per table).
+        per table).  Under ``use_plan=False`` the reference concatenates
+        and pads instead: that is this one-segment plan's buffer
+        coordinate for coordinate, so the same estimate.
 
         The buffer is read in chunks of :data:`CODED_CHUNK_ROWS` bucket
         rows, each built from the leaves, so no full-size copy or
@@ -1235,9 +1704,10 @@ class Exchange:
     def compress_wire_bytes_tree(self, tree) -> float:
         """Broadcast bytes of one ``compress_tree`` of this pytree: one
         shared padding tail per plan segment for the level-table
-        compressors, 4 B per coordinate for none."""
+        compressors, or per leaf under ``use_plan=False``; 4 B per
+        coordinate for none."""
         leaves = tree_flatten(tree)[0]
-        if self.compressor.has_levels:
+        if self.compressor.has_levels and self.cfg.use_plan:
             return self.plan_for(leaves, "compress", 1).compress_payload_bytes()
         return float(sum(self.compress_wire_bytes(xplan.size_of(l)) for l in leaves))
 

@@ -8,6 +8,8 @@ writes the buffer once in its final aligned layout, so the exchange needs
 no further padding; ``unpack`` slices the leaves back out and casts to
 their dtypes.  :func:`fused_compress` is the segment-fused quantize∘
 dequantize of ``compress_tree``: one launch of kernel 5 per row geometry.
+:func:`partition_leaf_ids` splits a leaf list into the contiguous buckets
+of the bucketed exchange, each of which is planned on its own.
 
 Its noise, with the device PRNG (``use_device_prng``): W workers' buffers
 stacked as ``[W * rows, bucket]`` share ONE seed per launch, where the
@@ -152,6 +154,45 @@ def _align(n: int, quant: Optional[QuantConfig], mode: str, axis_size: int,
     if purpose == "pmean" and mode == "two_phase":
         quota = axis_size * quant.bucket_size
     return -(-n // quota) * quota
+
+
+@functools.lru_cache(maxsize=None)
+def partition_leaf_ids(sizes: tuple, num_buckets: int) -> tuple:
+    """Split leaf ids ``0..len(sizes)-1`` into ``min(num_buckets,
+    len(sizes))`` contiguous runs in leaf (JAX flatten) order, greedily
+    balanced by coordinate count: a bucket closes once it reaches the
+    running average of what is left, never leaving fewer leaves than
+    buckets still to fill; if one huge leaf makes the pass come up short,
+    trailing leaves are split off the last bucket that has more than one.
+    The reference's algorithm, so the port's buckets are the reference's
+    (the bucketed exchange, its accounting and the ``pending`` slot's size
+    all read this one cached partition).  A tuple of ascending leaf-id
+    tuples."""
+    n_leaves = len(sizes)
+    k = max(1, min(int(num_buckets), n_leaves))
+    if k == 1:
+        return (tuple(range(n_leaves)),)
+    total = sum(sizes)
+    target = total / k
+    out, cur, acc, remaining = [], [], 0, k
+    for i, s in enumerate(sizes):
+        cur.append(i)
+        acc += s
+        left = n_leaves - i - 1
+        if len(out) < k - 1 and acc >= target and left >= remaining - 1:
+            out.append(tuple(cur))
+            cur, acc = [], 0
+            remaining -= 1
+            total_left = total - sum(sizes[j] for b in out for j in b)
+            target = total_left / max(remaining, 1)
+    if cur:
+        out.append(tuple(cur))
+    while len(out) < k:
+        for bi in range(len(out) - 1, -1, -1):
+            if len(out[bi]) > 1:
+                out = out[:bi] + [out[bi][:-1], out[bi][-1:]] + out[bi + 1:]
+                break
+    return tuple(tuple(b) for b in out)
 
 
 @functools.lru_cache(maxsize=None)

@@ -216,18 +216,30 @@ def dequantize(qt: Quantized, levels: torch.Tensor, cfg: QuantConfig) -> torch.T
 
 
 def quantize_dequantize(v: torch.Tensor, levels: torch.Tensor, noise,
-                        cfg: QuantConfig) -> torch.Tensor:
+                        cfg: QuantConfig, workers: bool = False) -> torch.Tensor:
     """Q then DEQ fused (hat{v} = Q_ell(v)) in one launch of kernel 5 with
-    one level table; shaped like ``v``, f32."""
+    one level table, on ``v``'s own bucket padding; shaped like ``v``, f32.
+    With ``workers=True`` ``v``'s leading dim holds W workers' vectors, each
+    padded on its own, all in the one launch, one ``[nb, bucket]`` draw a
+    worker in worker order (none under round-to-nearest)."""
     from repro_torch.kernels.segment_quantize import quantize_dequantize_segments
 
-    v2d, n = pad_to_buckets(v.reshape(-1).float(), cfg.bucket_size)
-    r = noise.uniform(v2d.shape, v2d.device) if cfg.stochastic else None
-    seg = torch.zeros((v2d.shape[0],), dtype=torch.int32, device=v2d.device)
+    W = v.shape[0] if workers else 1
+    x = v.reshape(W, -1).float()
+    n, b = x.shape[1], cfg.bucket_size
+    nb = -(-n // b)
+    if nb * b > n:
+        x = torch.cat([x, x.new_zeros((W, nb * b - n))], dim=1)
+    x2d = x.reshape(W * nb, b)
+    r = None
+    if cfg.stochastic:
+        draws = [noise.uniform((nb, b), x2d.device) for _ in range(W)]
+        r = draws[0] if W == 1 else torch.cat(draws)
+    seg = torch.zeros((W * nb,), dtype=torch.int32, device=x2d.device)
     hat = quantize_dequantize_segments(
-        v2d, r, levels.float().reshape(1, -1), seg, num_symbols=(cfg.num_symbols,),
+        x2d, r, levels.float().reshape(1, -1), seg, num_symbols=(cfg.num_symbols,),
         q_is_inf=cfg.q_is_inf, stochastic=cfg.stochastic)
-    return hat.reshape(-1)[:n].reshape(v.shape)
+    return hat.reshape(W, nb * b)[:, :n].reshape(v.shape)
 
 
 # ---------------------------------------------------------------------------

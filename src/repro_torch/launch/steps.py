@@ -40,6 +40,17 @@ from the workers' mean.  With ``recenter_every = R`` > 0, every step with
 exchanges its dual accumulator Y and recommits X = anchor + gamma Y, the
 adam family exchanges the params.
 
+The exchange's layouts need nothing of the step: ``wire_bytes`` is
+``Exchange.wire_bytes_tree`` (under the bucketed exchange the sum of
+``bucket_wire_bytes_tree``, under ``leafwise`` the per-leaf payload and
+norms), and under ``overlap="defer_tail"`` the new ``ex_state.pending``
+rides in the returned state like every other field: it moves only on
+steps that exchange (the re-centering exchange swaps it too), a
+rejected step hands back the old one, and the checkpoint and the
+watchdog's snapshot hold it.  The reference stages its backward through
+``jax.vjp`` under named scopes for the overlap; numerically that is
+``value_and_grad``, which ``torch.autograd.grad`` already is.
+
 Under ``level_schedule="qada"`` every exchange call (the gradient
 exchanges and the re-centering one) also adds its histogram to
 ``ex_state.hist`` and advances the QAda cadence inside

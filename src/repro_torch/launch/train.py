@@ -27,6 +27,16 @@ every exchange kernel.  As in the reference, no flag selects the
 device-PRNG exchange: a caller of :func:`run` passes
 ``exchange=ExchangeConfig(..., use_device_prng=True)``.
 
+``--compress-mode leafwise`` quantizes each gradient leaf in rows over its
+trailing dim (``allreduce_fallback`` is config-only, as in the
+reference), ``--no-exchange-plan`` takes the per-call layout, and
+``--num-buckets B --overlap bucketed|defer_tail`` the bucketed exchange
+(:mod:`repro_torch.core.exchange`); the exchange line prints ``plan=
+num_buckets= overlap=``::
+
+    python -m repro_torch.launch.train --reduced --device cpu --optimizer qgenx \
+        --compression int8 --num-buckets 3 --overlap defer_tail
+
 ``--sync-every`` / ``--recenter-every`` set the local-update regime
 (:mod:`repro_torch.launch.steps`); step lines then add ``drift=`` and,
 for qgenx, ``coded_bits=`` (the Theorem 2 estimate).
@@ -122,7 +132,9 @@ def build_exchange_config(args) -> ExchangeConfig:
                           sync_every=args.sync_every, recenter_every=args.recenter_every,
                           level_schedule=args.level_schedule,
                           level_update_every=args.level_update_every,
-                          rand_frac=args.rand_frac, ef_topk_frac=args.ef_topk_frac)
+                          rand_frac=args.rand_frac, ef_topk_frac=args.ef_topk_frac,
+                          use_plan=not args.no_exchange_plan,
+                          num_buckets=args.num_buckets, overlap=args.overlap)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -141,7 +153,22 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--gamma-scale", type=float, default=0.02)
     ap.add_argument("--compression", default="none", choices=("none", "int8", "int4"))
     ap.add_argument("--compressor", default="qgenx", choices=registered_compressors())
-    ap.add_argument("--compress-mode", default="two_phase", choices=("two_phase", "gather"))
+    ap.add_argument("--compress-mode", default="two_phase",
+                    choices=("two_phase", "gather", "leafwise"))
+    ap.add_argument("--no-exchange-plan", action="store_true",
+                    help="escape hatch: per-call exchange layout instead of the static "
+                         "ExchangePlan flat buffer (bit-exact for qgenx/layerwise pmean "
+                         "either way)")
+    ap.add_argument("--num-buckets", type=int, default=1,
+                    help="bucketed overlapped exchange: split the gradient into this many "
+                         "contiguous layer-ordered buckets, each an independent "
+                         "quantize+collective chain whose last collectives overlap the next "
+                         "bucket's kernels (1 = monolithic; requires --overlap)")
+    ap.add_argument("--overlap", default="off", choices=("off", "bucketed", "defer_tail"),
+                    help="off = monolithic exchange; bucketed = per-bucket chains issued in "
+                         "backprop order within the step; defer_tail = additionally "
+                         "double-buffer the tail bucket (first layers): its mean is carried "
+                         "in ExchangeState.pending and applied one sync late")
     ap.add_argument("--sync-every", type=int, default=1,
                     help="local-update regime: K local steps between exchanges "
                          "(1 = exchange every step)")
@@ -322,7 +349,8 @@ def run(args, log=print, exchange: Optional[ExchangeConfig] = None,
             + f"compressor={ex.cfg.compressor} compression={args.compression} "
             f"mode={ex.cfg.mode} sync_every={ex.cfg.sync_every} "
             f"recenter_every={ex.cfg.recenter_every} "
-            f"level_schedule={ex.cfg.level_schedule}")
+            f"level_schedule={ex.cfg.level_schedule} plan={ex.cfg.use_plan} "
+            f"num_buckets={ex.cfg.num_buckets} overlap={ex.cfg.overlap}")
         if spec.events:
             say(f"[train] fault schedule: {args.fault_spec}")
             if spec.has_device_events and not args.guard:

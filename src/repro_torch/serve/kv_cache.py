@@ -38,10 +38,11 @@ reference's ``jax.random.uniform`` draws through it).
 Per-layer bit policies reuse the ExchangePlan segment table
 (:class:`repro_torch.core.exchange_plan.PlanSegment`): contiguous layer
 ranges under one :class:`~repro_torch.core.quantization.QuantConfig`
-(``quant=None`` = fp32 storage).  ``mixed`` maps global-attention layers
-to int8 and local-window layers to int4; the port's dense configs have no
-local layers, so ``mixed`` is all-int8, as in the reference for such an
-architecture.
+(``quant=None`` = fp32 storage).  ``mixed`` stores local-window layers
+int4 and global-attention layers int8, as :func:`layer_bit_policy` reads
+them off the model's layer pattern: gemma3-27b's 5:1 local:global layers
+take both widths, and a config with no local-window layers (tinyllama,
+gemma-2b, qwen3-4b) is all-int8, as in the reference.
 
 Storage per segment ``j`` (one tensor per name, ``P = num_pages``):
 

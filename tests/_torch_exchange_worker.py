@@ -8,8 +8,10 @@ handed seeds instead (:func:`run`; :func:`run_layerwise` takes the
 layerwise ``Exchange.pmean_tree`` of a small pytree instead,
 :func:`run_sparse` the sparse compressors' chained ``pmean_tree`` with
 their support draws replayed, :func:`run_sparse_step` the train step
-under them, :func:`run_masked` ``pmean_tree`` with a liveness mask),
-saves the result and destroys the group.  :func:`run_group` starts the
+under them, :func:`run_masked` ``pmean_tree`` with a liveness mask,
+:func:`run_layouts` the bucketed, per-call and leafwise layouts,
+:func:`run_layout_step` the train step under them), saves the result
+and destroys the group.  :func:`run_group` starts the
 workers, joins them under a hard timeout and returns their outputs.
 """
 
@@ -428,6 +430,116 @@ def run_masked(rank, world, store_path, in_path, out_dir, cases, backend, device
                                                     for k in sorted(mean)])
                 res[f"hist{tag}"] = state.hist.cpu().numpy()
                 res[f"step{tag}"] = np.asarray(state.step)
+            np.savez(f"{out_dir}/out_{i}_{rank}.npz", **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_layouts(rank, world, store_path, in_path, out_dir, cases, backend, device):
+    """Each case ``(config kwargs, calls)`` (``_torch_layouts.port_config``):
+    ``calls`` chained ``Exchange.pmean_tree`` calls of this worker's trees
+    (``x_{case}_{call}_{rank}_{leaf}``, leaves of ``_torch_layouts.TREE``),
+    the state from ``init_state(template=, num_workers=)`` threaded
+    through, the noise ``noise_{case}_{rank}_{j}`` replayed.  Saves per call
+    the mean's leaves concatenated in leaf order (``mean_{call}``), the
+    final ``pending`` and the wire recorder's list."""
+    import torch
+
+    import _torch_layouts as lay
+    from repro_torch.core import exchange as xmod
+    from repro_torch.core.noise import ReplayNoise
+
+    torch.set_num_threads(1)  # small tensors; the suite's workers share the cores
+    dev = torch.device(device)
+    data = np.load(in_path)
+    n_leaves = len(lay.tree_paths())
+    dist.init_process_group(backend, store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        for i, (kw, calls) in enumerate(cases):
+            ex = xmod.make_exchange(lay.port_config(**kw), xmod.ProcessGroupComm())
+            trees = [lay.as_tree([torch.from_numpy(data[f"x_{i}_{c}_{rank}_{j}"]).to(dev)
+                                  for j in range(n_leaves)]) for c in range(calls)]
+            state = ex.init_state(dev, template=trees[0], num_workers=world)
+            draws = sorted((k for k in data.files if k.startswith(f"noise_{i}_{rank}_")),
+                           key=lambda k: int(k.rsplit("_", 1)[1]))
+            noise = ReplayNoise([data[k] for k in draws])
+            res = {}
+            xmod.wire_trace_start()
+            for c, tree in enumerate(trees):
+                mean, state = ex.pmean_tree(tree, state, noise)
+                res[f"mean_{c}"] = np.concatenate([m.cpu().numpy().ravel()
+                                                   for m in xmod.tree_flatten(mean)[0]])
+            trace = xmod.wire_trace_stop()
+            if noise.remaining:
+                raise RuntimeError("not every noise draw was used")
+            res["pending"] = state.pending.cpu().numpy()
+            res["wire_names"] = np.asarray([nm for nm, _ in trace], dtype=str)
+            res["wire_nbytes"] = np.asarray([nb for _, nb in trace], np.int64)
+            np.savez(f"{out_dir}/out_{i}_{rank}.npz", **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_layout_step(rank, world, store_path, in_path, out_dir, cases, backend, device):
+    """Each case name of ``_torch_layouts.STEP_CASES``: the port's qgenx
+    ``de`` train step on reduced tinyllama-1.1b from the reference's
+    initial params (``{case}_p0_{j}``), on this worker's rows of each
+    step's batch, with this worker's draws replayed
+    (``{case}_noise_{rank}_{i}``).  Saves ``out_{i}_{rank}.npz``: the
+    losses and ``wire_bytes``, the final params (``p_{j}``) and the wire
+    recorder's list of the first step."""
+    import torch
+
+    import _torch_layouts as lay
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_jax
+    from repro_torch.core import exchange as xmod
+    from repro_torch.core.noise import ReplayNoise
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import build
+    from repro_torch.optim import optimizers as opt
+    from repro_torch.optim.optimizers import OptimizerConfig
+
+    torch.set_num_threads(1)  # small tensors; the suite's workers share the cores
+    dev = torch.device(device)
+    data = np.load(in_path)
+    dist.init_process_group(backend, store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        for i, case in enumerate(cases):
+            n_leaves = sum(1 for k in data.files if k.startswith(f"{case}_p0_"))
+            model = params_from_jax([data[f"{case}_p0_{j}"] for j in range(n_leaves)],
+                                    build(get_config("tinyllama-1.1b").reduced(), device=dev))
+            ex = xmod.make_exchange(lay.step_config(case), xmod.ProcessGroupComm())
+            opt_cfg = OptimizerConfig(name="qgenx", gamma_scale=0.02, method="de")
+            step = make_train_step(model, opt_cfg, ex)
+            opt_state = opt.init_state(opt_cfg, model.param_leaves())
+            ex_state = ex.init_state(dev, template=model.param_leaves(), num_workers=world)
+            draws = sorted((k for k in data.files if k.startswith(f"{case}_noise_{rank}_")),
+                           key=lambda k: int(k.rsplit("_", 1)[1]))
+            noise = ReplayNoise([data[k] for k in draws])
+            half = lay.STEP_BATCH // world
+            rows = slice(rank * half, (rank + 1) * half)
+            loss, wire, trace = [], [], None
+            for t in range(lay.STEP_COUNT):
+                batch = to_device({"tokens": data[f"{case}_tokens_{t}"],
+                                   "labels": data[f"{case}_labels_{t}"]}, dev, rows)
+                if t == 0:
+                    xmod.wire_trace_start()
+                opt_state, ex_state, m = step(opt_state, ex_state, batch, noise)
+                if t == 0:
+                    trace = xmod.wire_trace_stop()
+                loss.append(float(m["loss"]))
+                wire.append(float(m["wire_bytes"]))
+            if noise.remaining:
+                raise RuntimeError("not every noise draw was used")
+            res = {"loss": np.asarray(loss, np.float64), "wire_bytes": np.asarray(wire, np.float64)}
+            for j, p in enumerate(model.param_leaves()):
+                res[f"p_{j}"] = p.detach().cpu().numpy()
+            res["wire_names"] = np.asarray([nm for nm, _ in trace], dtype=str)
+            res["wire_nbytes"] = np.asarray([nb for _, nb in trace], np.int64)
             np.savez(f"{out_dir}/out_{i}_{rank}.npz", **res)
     finally:
         dist.destroy_process_group()

@@ -56,16 +56,24 @@ def test_constructors_take_no_default_device(make):
 
 @pytest.mark.parametrize("kwargs", [
     dict(compressor="qgenx"),
-    # kwargs5: QAda is ported; without a refresh period it is invalid
-    # (ValueError, as in the reference)
-    dict(quant=Q8, mode="leafwise"), dict(quant=Q8, level_schedule="qada"),
+    # kwargs4, 8, 10 and 12: the layouts are ported; what stays invalid is
+    # the reference's invalid combinations of their options: buckets
+    # without an overlap, an overlap without buckets, a planless overlap,
+    # allreduce_fallback outside leafwise (kwargs9), error feedback with an
+    # overlap; kwargs5: QAda without a refresh period
+    dict(quant=Q8, num_buckets=2), dict(quant=Q8, level_schedule="qada"),
     dict(quant=Q8, drift_probe=0), dict(quant=Q8, recenter_every=-1),
-    dict(quant=Q8, num_buckets=2, overlap="bucketed"), dict(quant=Q8, allreduce_fallback=True),
-    dict(quant=Q8, use_plan=False), dict(quant=Q8, level_schedule="bogus"),
-], ids=[f"kwargs{i}" for i in range(3, 12)])  # kwargs0-2 were randk / ef-randk / ef21-topk
+    dict(quant=Q8, overlap="bucketed"), dict(quant=Q8, allreduce_fallback=True),
+    dict(quant=Q8, num_buckets=2, overlap="bucketed", use_plan=False),
+    dict(quant=Q8, level_schedule="bogus"),
+    dict(compressor="ef21-topk", num_buckets=2, overlap="defer_tail"),
+    # kwargs13: a field of the reference that has no counterpart in the
+    # port (it always runs its kernels) is an unknown keyword
+    dict(quant=Q8, use_pallas=True),
+], ids=[f"kwargs{i}" for i in range(3, 14)])  # kwargs0-2 were randk / ef-randk / ef21-topk
 def test_unported_exchange_options_are_rejected(kwargs):
-    # an unported (or invalid) value raises ValueError; a field the slice
-    # does not have yet is an unknown keyword, TypeError
+    # an invalid combination raises ValueError; a field the port does not
+    # have is an unknown keyword, TypeError
     with pytest.raises((TypeError, ValueError)):
         ExchangeConfig(**kwargs)
 
@@ -129,11 +137,25 @@ def test_contradictory_compressor_flags_raise(argv):
         train.build_exchange_config(train.parser().parse_args(argv))
 
 
-@pytest.mark.parametrize("argv", [["--overlap", "bucketed"], ["--optimizer", "sgd"],
-                                  ["--num-buckets", "2"], ["--no-exchange-plan"]])
+@pytest.mark.parametrize("argv", [["--use-pallas"], ["--optimizer", "sgd"],
+                                  ["--profile-dir", "x"], ["--compilation-cache-dir", "x"]])
 def test_train_cli_has_no_unported_flags(argv, capsys):
     with pytest.raises(SystemExit):
         train.parser().parse_args(argv)
+
+
+@pytest.mark.parametrize("argv,fields", [
+    (["--num-buckets", "4", "--overlap", "defer_tail"],
+     dict(num_buckets=4, overlap="defer_tail", use_plan=True)),
+    (["--num-buckets", "3", "--overlap", "bucketed"], dict(num_buckets=3, overlap="bucketed")),
+    (["--no-exchange-plan"], dict(use_plan=False, num_buckets=1, overlap="off")),
+    (["--compress-mode", "leafwise"], dict(mode="leafwise", allreduce_fallback=False)),
+])
+def test_layout_flags_set_the_exchange_config(argv, fields):
+    cfg = train.build_exchange_config(train.parser().parse_args(["--compression", "int8"] + argv))
+    assert {k: getattr(cfg, k) for k in fields} == fields
+    with pytest.raises(ValueError, match="ambiguous"):
+        train.build_exchange_config(train.parser().parse_args(["--num-buckets", "2"]))
 
 
 @pytest.mark.parametrize("spec,why", [("nan_grad@x", "bad step range"),
