@@ -57,9 +57,9 @@ imports only ``repro_torch`` (from ``src/`` beside this file) and:
       reduced-size run on the card is then held against the same run on
       the CPU (same weights, exact exchange; int8 with host noise and
       with the device PRNG from the same seeds);
-   c. the local-update regime at the same width but 10 of the 22 layers
-      (the depth cut keeps the script's time; the phase is checkpoint
-      I/O): 4 qgenx ``de`` int8
+   c. the local-update regime at the same width but 6 of the 22 layers
+      (the depth cut keeps the script's time, a ``reduced:`` line; the
+      phase is checkpoint I/O): 4 qgenx ``de`` int8
       two_phase steps with ``sync_every=2``, ``recenter_every=4`` and a
       checkpoint every 2 steps, the wire recorder on: ``wire_bytes`` 0
       on local steps and the analytic bytes plus the 16,384 probe bytes
@@ -130,9 +130,10 @@ imports only ``repro_torch`` (from ``src/`` beside this file) and:
       ``toy-vi-uq8`` row: device time from ``torch.profiler``,
       ``wrapper_ms``) (``toy_vi_path``);
    h. the serving path (``repro_torch.launch.serve`` at the full width of
-      tinyllama-1.1b, f32, ``--batch 16 --requests 32 --prompt-len 512
-      --gen 128 --page-size 16``; 48 requests before phase 4j, the cut
-      logged as a ``reduced:`` line): ``--kv-bits`` 8, 4 and 32, each request
+      tinyllama-1.1b, f32, ``--batch 16 --requests 16 --prompt-len 512
+      --gen 128 --page-size 16``; 48 requests before phase 4j, 32 before
+      phase 4k, the cut logged as a ``reduced:`` line): ``--kv-bits`` 8, 4
+      and 32, each request
       answered, kernel 1 launched 2 x 22 times a wave and a prefill and
       kernel 3 2 x 22 times a wave, the cache >= 2x / >= 4x below fp32, the
       fp32 tokens equal a full forward's argmax but at near ties; one
@@ -171,6 +172,31 @@ imports only ``repro_torch`` (from ``src/`` beside this file) and:
       for bit the planned one, and one ``allreduce_fallback`` exchange
       (kernels 1 and 3 once per leaf); then each at reduced size on the
       card against the CPU port (``card_vs_cpu_runs``);
+   k. the MoE and VLM families (``families_path``): (a) internvl2-26b
+      (d_model 6144, 48 / 8 heads x 128, d_ff 16384, vocab 92553, untied)
+      trained through ``repro_torch.launch.train.run`` at full width cut
+      to 2 of 48 layers (1,917,431,808 parameters; 1,917,462,528
+      exchanged coordinates with the norm scales, so the int8 payload
+      stays under 2**31 bytes), bf16 layers, batch 4 x seq 512 with its 256
+      stubbed prefix embeds, 3 qgenx ``de`` int8 two_phase steps (finite
+      losses, kernels 1-3 twice a step, the analytic ``wire_bytes``; step
+      times and peak beside 4a's); (b) llama4 at 5 reduced layers (chunk
+      64, 4 experts top-1 and a shared one), the same 3 steps at batch 4
+      x 512 on the card and on the CPU port, the same weights, batches
+      and noise: every MoE layer's expert choices compared (a flip is
+      reported with its token and top-two margin, and fails above a
+      1e-5 margin), then losses and params within 1e-6; (c) llama4-maverick-400b-a17b served through
+      ``repro_torch.launch.serve.run`` at its published widths cut to
+      one period of 4 layers and 16 of 128 experts (Llama-4-Scout's
+      count, the config's citation; ``reduced:`` lines), f32, 8 x (512 +
+      64) tokens at ``--kv-bits mixed`` (chunk layers int4, the global
+      layer int8, the launches by bits) and ``8``, then 2 requests at
+      ``--kv-bits 32`` with ``capacity_factor`` = E (no drops, so a
+      request's tokens are its own: they equal a full forward's argmax
+      but at near ties, and its cached K/V ``forward_with_kv``'s); (d)
+      internvl2-26b served at 12 of 48 layers, ``--kv-bits 8``, by its
+      tokens; (e) llama4 at 5 reduced layers served at ``mixed`` by
+      ``ServeEngine`` on the card and on the CPU port, tokens equal;
 5. runs each kernel at its main-path shape (the flat exchange buffer of
    tinyllama-1.1b, 2,148,532 rows x 512): kernels 1, 2, 3 in int8 as
    two_phase chains them, kernels 1 and 4 in int4 as gather does, and
@@ -189,6 +215,10 @@ imports only ``repro_torch`` (from ``src/`` beside this file) and:
    (payload bytes and kernel 5's estimates exactly equal, f32 within rtol
    1e-6), and each kernel is timed beside its bound and its plain
    version.  Kernels 1 and 5 have a row per variant and shape.
+   Kernels 1-3 also run at 4k(a)'s internvl2-26b buffer (3,745,044 x
+   512; the plain versions in row chunks) and kernels 1 and 3 at the
+   1024-wide cache rows of 4k(c) and 4k(d) (a wave's write [8, 1024], a
+   prefill's [512, 1024], a wave's read [8 x 576, 1024]).
 
 The card's line is printed again before the results; the line before
 the last is ``{"kernels": [...]}``, the last ``{"ok": true, "device":
@@ -209,6 +239,7 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+L2_BYTES = 50 * 2**20  # H100 SXM L2 (NVIDIA data sheet), where the card does not say
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 # H100 SXM 32-bit integer rate: 64 INT32 lanes per SM per clock x 132 SMs
 # x 1.98 GHz, the boost clock behind the data sheet's 67 TFLOP/s f32
@@ -938,8 +969,9 @@ RESUME_LOSS_RTOL = 1e-6  # see local_update_path
 # phase 4c's depth: its time is the checkpoints' I/O (five 11.3 GB saves
 # and restores at ~37 s each at 22 layers); cut to 10 of 22 layers so the
 # whole script keeps its time with phases 4h and 4i (full width) added
-# (~226 s at 16 layers on an H100 80GB HBM3)
-LOCAL_UPDATE_LAYERS = 10
+# (~226 s at 16 layers, 162.5-177.9 s at 10 on an H100 80GB HBM3), and to 6
+# with phase 4k
+LOCAL_UPDATE_LAYERS = 6
 
 
 def _leaf_crcs(trees) -> dict:
@@ -1010,8 +1042,8 @@ def local_update_path(torch, batch: int, seq: int) -> dict:
     while need(cfg) > free and cfg.num_layers > 1:
         cfg = dataclasses.replace(cfg, num_layers=cfg.num_layers - 1)
     if cfg.num_layers < get_config("tinyllama-1.1b").num_layers:
-        log(f"  phase 4c: depth cut to {cfg.num_layers} layers (the script's time; "
-            f"{free} bytes free on the checkout's disk)")
+        log(f"  reduced: phase 4c tinyllama-1.1b num_layers 22 -> {cfg.num_layers} (the "
+            f"script's time, for phase 4k; {free} bytes free on the checkout's disk)")
     if need(cfg) > free:
         fail(f"phase 4c: {free} bytes free, two checkpoints need {need(cfg) / 1.25:.0f}")
     leaves = _leaves(torch, cfg)
@@ -1897,10 +1929,12 @@ class _NumpyNoise:
 # phase 4h: the serving path (paged quantized KV-cache, continuous batching)
 # ---------------------------------------------------------------------------
 
-# 4h's requests, cut from 48 to 32 when phase 4j was added: the phase is
-# host-bound (110.7-153.9 s at 48 on an H100 80GB HBM3), and a third of its
-# requests keeps the script inside its time with every path and check
-SERVE_REQUESTS = 32
+# 4h's requests, cut from 48 to 32 when phase 4j was added and to 16 with
+# phase 4k: the phase is host-bound (110.7-153.9 s at 48 and 88.8-114.7 s at
+# 32 on an H100 80GB HBM3), and fewer requests keep the script inside its
+# time with every path and check (the half-pages, guard and exchange runs
+# already served 16)
+SERVE_REQUESTS = 16
 SERVE_ARGV = ("--batch", "16", "--requests", str(SERVE_REQUESTS), "--prompt-len", "512",
               "--gen", "128",
               "--page-size", "16")
@@ -2061,7 +2095,7 @@ def _exchange_run(torch, run, counted) -> dict:
 def serve_path(torch, reduced=False, device="cuda") -> dict:
     """Phase 4h: ``repro_torch.launch.serve`` at full width (tinyllama-1.1b,
     22 layers, f32 as the reference serves it, random weights from seed 0),
-    ``--batch 16 --requests 32 --prompt-len 512 --gen 128 --page-size 16``
+    ``--batch 16 --requests 16 --prompt-len 512 --gen 128 --page-size 16``
     (``SERVE_REQUESTS``, cut from 48; logged as a ``reduced:`` line);
     each run's model is freed before the next, so each peak is its own:
 
@@ -2089,8 +2123,8 @@ def serve_path(torch, reduced=False, device="cuda") -> dict:
     bytes.  Returns the runs' numbers and launch counts."""
     counted = device == "cuda"
     kw = dict(reduced=reduced, device=device)
-    log(f"  reduced: phase 4h --requests 48 -> {SERVE_REQUESTS} (the phase's time; every run "
-        f"and check kept)")
+    log(f"  reduced: phase 4h --requests 48 -> {SERVE_REQUESTS} (the phase's time, for phases "
+        f"4j and 4k; every run and check kept)")
     runs = {}
     for bits in ("8", "4", "32"):
         run = _serve_run(torch, _serve_args("--kv-bits", bits, **kw), f"kv-bits {bits}", counted)
@@ -2164,10 +2198,13 @@ def kv_kernel_rows(torch, feat: int, writes: dict, read_rows: int, launches: dic
     """Kernel 1 on the cache writes ``writes`` (name -> token rows) and
     kernel 3 on a wave's read of ``read_rows`` token rows, ``feat`` features
     a token (the bucket), int8 and int4, each held to its plain version and
-    timed: ``ms`` the kernel's device time a launch (``torch.profiler``),
-    ``wrapper_ms`` the wrapper's time a call back to back.  ``launches``
-    maps bits to (kernel 1's, kernel 3's) count on the path at that shape;
-    row names end in ``suffix``."""
+    timed: ``ms`` the kernel's device time a launch (``torch.profiler``) and
+    ``plain_ms`` the plain version's time a call, each call after an L2
+    flush (:func:`l2_flush`: on the decode path a layer's cache rows come
+    from HBM, behind the other layers' work), and ``wrapper_ms`` the
+    wrapper's time a call back to back.  ``launches`` maps bits to
+    (kernel 1's, kernel 3's) count on the path at that shape; row names end
+    in ``suffix``."""
     from repro_torch.core.quantization import uniform_levels
     from repro_torch.kernels import ref
     from repro_torch.kernels.dequantize import dequantize_blocks
@@ -2176,6 +2213,7 @@ def kv_kernel_rows(torch, feat: int, writes: dict, read_rows: int, launches: dic
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(feat)
+    flush = l2_flush(torch)
     rows = []
     for bits in (8, 4):
         s = 15 if bits == 8 else 5
@@ -2187,9 +2225,10 @@ def kv_kernel_rows(torch, feat: int, writes: dict, read_rows: int, launches: dic
             x[3] = 0.0
             r = torch.rand((n_rows, feat), generator=gen, device=dev)
             wrapper, got = _time_ms(torch, lambda: quantize_blocks(x, r, lv, **kw), 200)
-            ms = device_ms(torch, lambda: quantize_blocks(x, r, lv, **kw), "quantize", 50)
+            ms = device_ms(torch, lambda: quantize_blocks(x, r, lv, **kw), "quantize", 50,
+                           flush)
             plain, want = _time_ms(torch, lambda: ref.quantize_blocks_plain(x, r, lv, **kw),
-                                   20)
+                                   20, flush)
             err = _deq_err(torch, f"kv {what} int{bits}{suffix}", got, want, lv, bits)
             n = n_rows * feat
             row = kernel_row(f"quantize_blocks/kv-{what}-int{bits}{suffix}", n_write,
@@ -2205,9 +2244,9 @@ def kv_kernel_rows(torch, feat: int, writes: dict, read_rows: int, launches: dic
         wrapper, got = _time_ms(torch, lambda: dequantize_blocks(pk, nk, lv, num_symbols=s + 2,
                                                                  bits=bits), 200)
         ms = device_ms(torch, lambda: dequantize_blocks(pk, nk, lv, num_symbols=s + 2,
-                                                        bits=bits), "dequantize", 50)
+                                                        bits=bits), "dequantize", 50, flush)
         plain, want = _time_ms(torch, lambda: ref.dequantize_blocks_plain(pk, nk, lv,
-                                                                          bits=bits), 20)
+                                                                          bits=bits), 20, flush)
         err = _close(torch, f"kv read int{bits}{suffix}", got, want)
         n = read_rows * feat
         row = kernel_row(f"dequantize_blocks/kv-read-int{bits}{suffix}", n_read,
@@ -2333,24 +2372,33 @@ def _bits_tally(module, name: str):
 def archs_train(torch, batch: int, seq: int, reduced=False, device="cuda") -> dict:
     """(a): qwen3-4b at full width (d_model 2560, 32 / 8 heads, head_dim 128,
     d_ff 9728, vocab 151936, qk-norm, rope 1e6) cut to ARCH_TRAIN_LAYERS
-    layers, bf16 layers, batch x seq on one card: 3 qgenx ``de`` steps with
-    the int8 two_phase exchange and host noise through
-    ``repro_torch.launch.train.run``.  Every loss finite, ``wire_bytes`` the
-    analytic count of the gradient tree (q_norm / k_norm leaves included),
-    kernels 1-3 once an exchange and no other kernel.  Returns the counts,
-    step times, peak and the exchanged coordinates."""
+    layers (``train_cut``)."""
+    return train_cut(torch, "qwen3-4b", ARCH_TRAIN_LAYERS, batch, seq, "4i(a)",
+                     "a buffer of tinyllama's size; the peak below 70 GB; train phase only",
+                     reduced=reduced, device=device)
+
+
+def train_cut(torch, arch: str, layers: int, batch: int, seq: int, phase: str, why: str,
+              reduced=False, device="cuda", max_peak: float = 70e9) -> dict:
+    """``arch`` at full width cut to ``layers`` layers (``why`` logged on
+    the ``reduced:`` line), bf16 layers, batch x seq on one card: 3 qgenx
+    ``de`` steps with the int8 two_phase exchange and host noise through
+    ``repro_torch.launch.train.run`` (a VLM's batches carry its stubbed
+    prefix embeds).  Every loss finite, ``wire_bytes`` the analytic count
+    of the gradient tree, kernels 1-3 once an exchange and no other
+    kernel, the peak below ``max_peak`` bytes.  Returns the counts, step
+    times, peak and the exchanged coordinates."""
     from repro_torch.configs import get_config
     from repro_torch.core.exchange import make_exchange
     from repro_torch.core.exchange_plan import size_of
     from repro_torch.kernels import cuda
     from repro_torch.launch.train import build_exchange_config, run
 
-    full = get_config("qwen3-4b")
-    cfg = dataclasses.replace(full.reduced() if reduced else full,
-                              num_layers=ARCH_TRAIN_LAYERS)
-    log(f"  reduced: qwen3-4b num_layers {full.num_layers} -> {cfg.num_layers} at full width "
-        f"(a buffer of tinyllama's size; the peak below 70 GB; train phase only)")
-    args = _train_args(arch="qwen3-4b", dtype="float32" if reduced else "bfloat16",
+    full = get_config(arch)
+    cfg = dataclasses.replace(full.reduced() if reduced else full, num_layers=layers)
+    log(f"  reduced: {arch} num_layers {full.num_layers} -> {cfg.num_layers} at full width "
+        f"({why})")
+    args = _train_args(arch=arch, dtype="float32" if reduced else "bfloat16",
                        batch=batch, seq=seq, device=device, optimizer="qgenx", method="de",
                        compression="int8", compress_mode="two_phase", steps=3)
     shapes = []
@@ -2374,21 +2422,21 @@ def archs_train(torch, batch: int, seq: int, reduced=False, device="cuda") -> di
     calls = 2 * len(out["loss"])
     want_wire = 2 * ex.compressor.wire_bytes_tree(shapes, 1, ex.cfg)
     if not all(math.isfinite(v) for v in out["loss"]):
-        fail(f"phase 4i(a): non-finite loss {out['loss']}")
+        fail(f"phase {phase}: non-finite loss {out['loss']}")
     if any(w != want_wire for w in out["wire_bytes"]):
-        fail(f"phase 4i(a): wire_bytes {out['wire_bytes']} != analytic {want_wire}")
-    want = {k: calls if k in ("quantize_blocks", "dequant_reduce_requantize_blocks",
-                              "dequantize_blocks") else 0 for k in counts}
+        fail(f"phase {phase}: wire_bytes {out['wire_bytes']} != analytic {want_wire}")
+    want = {k: calls if k in EXCHANGE_KERNELS else 0 for k in counts}
     if device == "cuda" and counts != want:
-        fail(f"phase 4i(a): launches {counts} != {want}")
-    if peak - held > 70e9:
-        fail(f"phase 4i(a): the run's peak {peak - held} bytes above 70 GB ({held} "
+        fail(f"phase {phase}: launches {counts} != {want}")
+    if peak - held > max_peak:
+        fail(f"phase {phase}: the run's peak {peak - held} bytes above {max_peak:.0f} ({held} "
              f"held before it)")
-    log(f"  phase 4i(a) qwen3-4b de int8 two_phase ({sum(sizes)} coordinates): "
+    log(f"  phase {phase} {arch} de int8 two_phase ({sum(sizes)} coordinates): "
         f"loss={out['loss']} wire_bytes={out['wire_bytes'][0]:.0f} step_s={out['step_s']} "
         f"peak_bytes={peak} ({held} held before the run) "
         f"launches={ {k: v for k, v in counts.items() if v} }")
-    return {"counts": counts, "step_s": out["step_s"], "peak": peak, "n_live": sum(sizes)}
+    return {"counts": counts, "step_s": out["step_s"], "peak": peak, "n_live": sum(sizes),
+            "loss": out["loss"]}
 
 
 def archs_serve(torch, reduced=False, device="cuda") -> dict:
@@ -2486,7 +2534,7 @@ def archs_serve(torch, reduced=False, device="cuda") -> dict:
 SERVE_KV_RTOL = 1e-4
 
 
-def _check_fp32_kv(torch, run) -> float:
+def _check_fp32_kv(torch, run, phase: str = "4i(d)") -> float:
     """Every fp32 request's cached K/V, every layer and written position
     (the prompt's from the banded prefill, the rest from windowed paged
     decode), against ``forward_with_kv`` over its prompt + generated
@@ -2509,16 +2557,20 @@ def _check_fp32_kv(torch, run) -> float:
                     err = float((got - want).norm() / want.norm())
                     worst = max(worst, err)
                     if not err <= SERVE_KV_RTOL:
-                        fail(f"phase 4i(d) fp32: request {rid} layer {seg.start + i} {name} "
+                        fail(f"phase {phase} fp32: request {rid} layer {seg.start + i} {name} "
                              f"relative error {err:.3e} against the full forward")
     return worst
 
 
-def archs_buffer_rows(torch, train: dict, errs: dict) -> list:
-    """Kernels 1, 2 and 3 at the flat exchange buffer of (a)'s qwen3-4b
-    ([rows, 512], int8, q = inf) as the two_phase exchange chains them,
-    each held to its plain version on the same inputs and timed;
-    ``launches`` is (a)'s count."""
+def archs_buffer_rows(torch, train: dict, errs: dict, tag: str = "qwen3",
+                      what: str = "qwen3-4b's buffer", chunked: bool = False) -> list:
+    """Kernels 1, 2 and 3 at the flat exchange buffer of a ``train_cut``
+    run (4i(a)'s qwen3-4b unless ``tag`` / ``what`` name another; [rows,
+    512], int8, q = inf) as the two_phase exchange chains them, each held
+    to its plain version on the same inputs and timed; ``launches`` is
+    that run's count.  ``chunked``: the plain versions run in row chunks
+    of 2**18 (at internvl2's 1.92e9 coordinates their intermediates at the
+    full buffer do not fit beside the buffers), timed over all chunks."""
     from repro_torch.core.quantization import uniform_levels
     from repro_torch.kernels import ref
     from repro_torch.kernels.dequant_reduce import dequant_reduce_requantize_blocks
@@ -2540,37 +2592,49 @@ def archs_buffer_rows(torch, train: dict, errs: dict) -> list:
     def entry(name, ms, plain, err, nbytes, ops):
         kernel = kernel_key(name)
         out.append(kernel_row(name, train["counts"][kernel], ms, plain, max(err, errs[kernel]),
-                              nbytes, ops, f"{rows} x {bucket}, int8, qwen3-4b's buffer"))
+                              nbytes, ops, f"{rows} x {bucket}, int8, {what}"))
+
+    def plain_of(fn, *full):
+        """The plain version on the full arrays ``full``, whole or in chunks
+        of their row axis (the first axis of length ``rows``)."""
+        if not chunked:
+            return _time_ms(torch, lambda: fn(*full), 2)
+
+        def part(sl):
+            return fn(*(t.narrow(list(t.shape).index(rows), sl.start, sl.stop - sl.start)
+                        for t in full))
+
+        return _time_ms(torch, lambda: _plain_chunks(torch, part, rows), 1)
 
     x = torch.randn((rows, bucket), generator=gen, device=dev)
     r = torch.rand((rows, bucket), generator=gen, device=dev)
     ms, got = _time_ms(torch, lambda: quantize_blocks(x, r, lv, **kw), 10)
-    plain, want = _time_ms(torch, lambda: ref.quantize_blocks_plain(x, r, lv, **kw), 2)
+    plain, want = plain_of(lambda x, r: ref.quantize_blocks_plain(x, r, lv, **kw), x, r)
     del x
     torch.cuda.empty_cache()
-    err = _deq_err(torch, "quantize int8 qwen3-4b buffer", got, want, lv, bits)
+    err = _deq_err(torch, f"quantize int8 {what}", got, want, lv, bits)
     del want
-    entry("quantize_blocks/qwen3-buffer-int8", ms, plain, err,
+    entry(f"quantize_blocks/{tag}-buffer-int8", ms, plain, err,
           4 * n + 4 * n + n + 4 * rows, n * (10 + 2 * s))
     P, N = got[0].unsqueeze(0), got[1].unsqueeze(0)
     del got
     ms, got = _time_ms(torch, lambda: dequant_reduce_requantize_blocks(
         P, N, lv, r, num_workers=1, **kw), 10)
-    plain, want = _time_ms(torch, lambda: ref.dequant_reduce_requantize_blocks_plain(
-        P, N, lv, r, **kw), 2)
+    plain, want = plain_of(lambda P, N, r: ref.dequant_reduce_requantize_blocks_plain(
+        P, N, lv, r, **kw), P, N, r)
     del r, P, N
     torch.cuda.empty_cache()
-    err = _deq_err(torch, "dequant_reduce_requantize qwen3-4b buffer", got, want, lv, bits)
+    err = _deq_err(torch, f"dequant_reduce_requantize {what}", got, want, lv, bits)
     del want
-    entry("dequant_reduce_requantize_blocks/qwen3-buffer", ms, plain, err,
+    entry(f"dequant_reduce_requantize_blocks/{tag}-buffer", ms, plain, err,
           n + 4 * rows + 4 * n + n + 4 * rows, n * (14 + 2 * s))
     payload, norms = got
     ms, got = _time_ms(torch, lambda: dequantize_blocks(payload, norms, lv, num_symbols=s + 2,
                                                         bits=bits), 10)
-    plain, want = _time_ms(torch, lambda: ref.dequantize_blocks_plain(payload, norms, lv,
-                                                                      bits=bits), 2)
-    err = _close(torch, "dequantize qwen3-4b buffer", got, want)
-    entry("dequantize_blocks/qwen3-buffer", ms, plain, err, n + 4 * rows + 4 * n, 3 * n)
+    plain, want = plain_of(lambda p, q: ref.dequantize_blocks_plain(p, q, lv, bits=bits),
+                           payload, norms)
+    err = _close(torch, f"dequantize {what}", got, want)
+    entry(f"dequantize_blocks/{tag}-buffer", ms, plain, err, n + 4 * rows + 4 * n, 3 * n)
     del payload, norms, got, want
     torch.cuda.empty_cache()
     return out
@@ -2839,6 +2903,334 @@ def leafwise_kernel_rows(torch, shapes: list, layouts: dict, errs: dict) -> list
 
 
 # ---------------------------------------------------------------------------
+# phase 4k: the MoE and VLM families (llama4-maverick-400b-a17b, internvl2-26b)
+# ---------------------------------------------------------------------------
+
+LLAMA4, INTERNVL2 = "llama4-maverick-400b-a17b", "internvl2-26b"
+# (a)'s depth: 2 of internvl2-26b's 48 layers at full width, 1,917,431,808
+# parameters and 1,917,462,528 exchanged coordinates, so the int8 payload
+# (1.92e9 bytes) stays under 2**31 bytes; a third layer would pass it
+VLM_TRAIN_LAYERS = 2
+# (c)'s cut: one period of llama4's pattern (chunk / MoE-chunk / chunk /
+# MoE-global) and 16 of its 128 experts (Llama-4-Scout-17B-16E's count, the
+# config's own citation): 6.85e9 parameters, 27.4 GB in f32, where the
+# first two whole layers at 128 experts are 18.55e9 parameters, 74.2 GB
+MOE_SERVE_LAYERS, MOE_SERVE_EXPERTS = 4, 16
+# (d)'s depth: 12 of internvl2-26b's 48 layers (5.83e9 parameters, 23.3 GB in f32)
+VLM_SERVE_LAYERS = 12
+FAMILY_SERVE_ARGV = ("--batch", "8", "--requests", "8", "--prompt-len", "512", "--gen", "64",
+                     "--page-size", "16")
+# (b)'s and (e)'s model: llama4's reduced() at 5 layers (one period of the
+# pattern and a chunk tail layer: the CPU tests' llama4-5)
+MOE_SMALL_LAYERS = 5
+# (b)'s bars: losses and params within MOE_CARD_CPU_RTOL (sound runs on
+# the H100 read 7e-8 on the losses and 2.5e-8 on the params), and no
+# expert choice flipped whose top-two margin on the CPU is above
+# MOE_FLIP_MARGIN (a flip inside it is a tie at f32 rounding, reported)
+MOE_CARD_CPU_RTOL = 1e-6
+MOE_FLIP_MARGIN = 1e-5
+
+
+def _moe_small(torch):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(LLAMA4).reduced(), num_layers=MOE_SMALL_LAYERS)
+
+
+def moe_card_vs_cpu(torch, batch: int, seq: int, steps: int = 3) -> dict:
+    """(b): llama4-5 (chunk 64, 4 experts top-1 with a shared expert), f32,
+    batch x seq (8 chunks of 64 at seq 512), ``steps`` qgenx ``de`` steps
+    with the int8 two_phase exchange on the card (CUDA kernels 1-3, each
+    launched twice a step) and on the CPU (plain versions), the same
+    weights, batches and noise.  Every MoE layer's expert choices are
+    compared first: a choice that flips is reported with its token and the
+    margin between its top two probabilities on the CPU, and fails the
+    phase if that margin is above MOE_FLIP_MARGIN.  Then losses and params
+    within MOE_CARD_CPU_RTOL.  Returns the flips and the card run's
+    counts."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.core.exchange import ExchangeConfig, make_exchange
+    from repro_torch.core.quantization import QuantConfig
+    from repro_torch.data.pipeline import make_pipeline, to_device
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.model import build
+    from repro_torch.optim import qgenx as qgenx_opt
+    from repro_torch.optim.optimizers import OptimizerConfig
+
+    cfg = _moe_small(torch)
+    base = build(cfg, seed=0, device="cpu")
+    pipe = make_pipeline(cfg.vocab_size, batch, seq, seed=0)
+    batches = [next(pipe) for _ in range(steps)]
+    ex_cfg = ExchangeConfig(compressor="qgenx", mode="two_phase",
+                            quant=QuantConfig(num_levels=15, bits=8, bucket_size=512))
+    opt_cfg = OptimizerConfig(name="qgenx", gamma_scale=0.02, method="de")
+    route = MOE.route
+    results = {}
+    try:
+        for dev in ("cpu", "cuda"):
+            seen = []
+
+            def recording(p, c, xt, seen=seen):
+                probs, gates, idx = route(p, c, xt)
+                seen.append((probs.detach().cpu(), idx.detach().cpu()))
+                return probs, gates, idx
+
+            MOE.route = recording
+            model = copy.deepcopy(base).to(dev)
+            ex = make_exchange(ex_cfg)
+            step = make_train_step(model, opt_cfg, ex)
+            opt_state = qgenx_opt.init_qgenx_state(opt_cfg, model.param_leaves())
+            ex_state = ex.init_state(dev, template=model.param_leaves(), num_workers=1)
+            noise = _NumpyNoise(7)
+            losses = []
+            cuda.reset_launch_counts()
+            for b in batches:
+                opt_state, ex_state, m = step(opt_state, ex_state, to_device(b, dev), noise)
+                losses.append(float(m["loss"]))
+            counts = cuda.launch_counts()
+            results[dev] = (np.array(losses), [p.detach().cpu() for p in model.param_leaves()],
+                            seen, counts)
+            del model, opt_state, ex_state
+    finally:
+        MOE.route = route
+    (lc, pc, sc, _), (lg, pg, sg, counts) = results["cpu"], results["cuda"]
+    want = {k: 2 * steps if k in EXCHANGE_KERNELS else 0 for k in counts}
+    if counts != want:
+        fail(f"phase 4k(b): card launches {counts} != {want}")
+    if len(sc) != len(sg) or len(sc) != 2 * 2 * steps:  # 2 MoE layers, 2 gradients a step
+        fail(f"phase 4k(b): {len(sg)} routing calls on the card, {len(sc)} on the CPU")
+    flips = []
+    for call, ((probs_c, idx_c), (_, idx_g)) in enumerate(zip(sc, sg)):
+        for t in torch.nonzero(idx_c[:, 0] != idx_g[:, 0]).flatten().tolist():
+            top = torch.topk(probs_c[t], 2).values
+            flips.append((call, t, int(idx_c[t, 0]), int(idx_g[t, 0]),
+                          float(top[0] - top[1])))
+    for call, t, a, b, margin in flips[:20]:
+        log(f"  phase 4k(b): routing call {call} (step {call // 4}, MoE layer {call % 2}) "
+            f"token {t}: expert {a} on the CPU, {b} on the card; top-two margin {margin:.3e}")
+    n_tok = sum(int(idx.numel()) for _, idx in sc)
+    wide = [f for f in flips if f[4] > MOE_FLIP_MARGIN]
+    if wide:
+        fail(f"phase 4k(b): {len(wide)} expert choices flipped card vs cpu with a top-two "
+             f"margin above {MOE_FLIP_MARGIN:g} (largest {max(f[4] for f in wide):.3e})")
+    if not np.allclose(lg, lc, rtol=MOE_CARD_CPU_RTOL, atol=0):
+        fail(f"phase 4k(b) card vs cpu loss: {lg} vs {lc} ({len(flips)} routing flips)")
+    worst = max(float((a - b).norm() / b.norm()) for a, b in zip(pg, pc))
+    if worst > MOE_CARD_CPU_RTOL:
+        fail(f"phase 4k(b) card vs cpu params: rel err {worst:.3e} ({len(flips)} routing "
+             "flips)")
+    log(f"  phase 4k(b) llama4-5 card vs cpu (qgenx de int8 two_phase, {steps} steps, "
+        f"{batch} x {seq}): {len(flips)} of {n_tok} expert choices flipped; losses {lg} vs "
+        f"{lc}, worst param rel err {worst:.3e}; card launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return {"flips": flips, "counts": counts, "choices": n_tok}
+
+
+def _moe_serve_cut(torch, reduced=False):
+    from repro_torch.configs import get_config
+
+    full = get_config(LLAMA4)
+    base = full.reduced() if reduced else full
+    return dataclasses.replace(base, num_layers=MOE_SERVE_LAYERS,
+                               num_experts=min(base.num_experts, MOE_SERVE_EXPERTS))
+
+
+def _release_served(run: dict, tag: str, ratio: float) -> None:
+    """A 4k serving run's checks (every request answered, every page freed,
+    the cache ``ratio`` x below fp32); then its engine and model are let
+    go, so that the next run's peak is its own."""
+    eng = run["engine"]
+    if len(run["out"]) != 8 or eng.allocator.n_free != eng.pc.num_pages:
+        fail(f"phase 4k({tag}): {len(run['out'])} of 8 answered")
+    if eng.fp32_cache_bytes / eng.cache_bytes < ratio:
+        fail(f"phase 4k({tag}): cache {eng.cache_bytes} B vs fp32 {eng.fp32_cache_bytes} B")
+    run.update(engine=None, cache_bytes=eng.cache_bytes, fp32_cache_bytes=eng.fp32_cache_bytes)
+
+
+def families_serve(torch, reduced=False, device="cuda") -> dict:
+    """(c), (d): ``repro_torch.launch.serve.run``, f32, random weights from
+    seed 0, FAMILY_SERVE_ARGV (8 requests of 510-512 + 64 tokens, 8 slots),
+    each run's model freed before the next:
+
+    (c) llama4-maverick-400b-a17b at its published widths cut to
+        MOE_SERVE_LAYERS layers and MOE_SERVE_EXPERTS experts: at
+        ``--kv-bits mixed`` (the chunk-local layers int4, the global layer
+        int8: kernel 1 and 3's launches by bits) and at ``--kv-bits 8``;
+        then 2 requests at ``--kv-bits 32`` with ``capacity_factor`` = E,
+        so that no token is dropped and a request's tokens depend on
+        nothing else in its batch (ROADMAP C14): its tokens equal a full
+        forward's argmax but at near ties and its cached K/V, every layer,
+        ``forward_with_kv``'s within SERVE_KV_RTOL (the 576 positions lie
+        inside one chunk of 8192, so chunk prefill and windowed decode
+        agree);
+    (d) internvl2-26b cut to VLM_SERVE_LAYERS layers at ``--kv-bits 8``,
+        served by its tokens alone (ROADMAP C15).
+
+    Every request answers, every page is freed and the quantized caches
+    are below fp32.  Returns the runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import kv_cache as KVC
+
+    counted = device == "cuda"
+    kw = dict(reduced=reduced, device=device)
+    # reduced: the whole sequence inside the chunk of 64, as at full width
+    small = ("--prompt-len", "40", "--gen", "8") if reduced else ()
+    cfg = _moe_serve_cut(torch, reduced)
+    full = get_config(LLAMA4)
+    log(f"  reduced: {LLAMA4} num_layers {full.num_layers} -> {cfg.num_layers}, num_experts "
+        f"{full.num_experts} -> {cfg.num_experts} at full width (Llama-4-Scout's expert count, "
+        f"the config's citation; {cfg.param_count()} parameters, "
+        f"{cfg.param_count() * 4 / 1e9:.1f} GB in f32: two whole layers at 128 experts are "
+        f"74.2 GB of the card's 80; serve phase only)")
+    base = FAMILY_SERVE_ARGV + ("--arch", LLAMA4) + small
+    want_bits = KVC.layer_bit_policy(cfg, "mixed")
+    if want_bits != (4, 4, 4, 8):
+        fail(f"phase 4k(c): layer_bit_policy(mixed) = {want_bits}")
+    n_local = want_bits.count(4)
+    runs = {}
+    writes, undo_w = _bits_tally(KVC, "quantize_blocks")
+    reads, undo_r = _bits_tally(KVC, "dequantize_blocks")
+    try:
+        run = _serve_run(torch, _serve_args("--kv-bits", "mixed", base=base, **kw),
+                         "(c) llama4 kv-bits mixed", counted, phase="4k", config=cfg)
+    finally:
+        undo_w()
+        undo_r()
+    eng = run["engine"]
+    waves, pre = eng.sched.decode_steps, len(eng.timing["prefill_s"])
+    want_w = {4: 2 * n_local * (waves + pre), 8: 2 * (cfg.num_layers - n_local) * (waves + pre)}
+    want_r = {4: 2 * n_local * waves, 8: 2 * (cfg.num_layers - n_local) * waves}
+    if writes != want_w or reads != want_r:
+        fail(f"phase 4k(c): kernel 1 by bits {writes} (want {want_w}), kernel 3 {reads} "
+             f"(want {want_r})")
+    run.update(writes=writes, reads=reads)
+    runs["c-mixed"] = run
+    eng = None
+    _release_served(run, "c-mixed", 4.0)
+    run = _serve_run(torch, _serve_args("--kv-bits", "8", base=base, **kw),
+                     "(c) llama4 kv-bits 8", counted, phase="4k", config=cfg)
+    runs["c-int8"] = run
+    _release_served(run, "c-int8", 2.0)
+    no_drop = dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts))
+    fp32 = _serve_run(torch, _serve_args("--kv-bits", "32", "--requests", "2", "--batch", "2",
+                                         base=base, **kw),
+                      "(c) llama4 kv-bits 32, 2 requests, capacity_factor = E", counted,
+                      phase="4k", config=no_drop)
+    if len(fp32["out"]) != 2:
+        fail(f"phase 4k(c) fp32: {len(fp32['out'])} of 2 answered")
+    fp32["near_ties"] = _check_fp32_tokens(torch, fp32, phase="4k(c)")
+    kv_err = _check_fp32_kv(torch, fp32, phase="4k(c)")
+    log(f"  phase 4k(c) fp32: every token equals the full forward's argmax but "
+        f"{fp32['near_ties']} near ties (gap < {SERVE_GAP_TOL}); every layer's cached K/V "
+        f"within {kv_err:.3e} (relative) of the full forward's")
+    fp32["engine"] = None
+    runs["c-fp32"] = fp32
+    full = get_config(INTERNVL2)
+    vcfg = dataclasses.replace(full.reduced() if reduced else full,
+                               num_layers=VLM_SERVE_LAYERS)
+    log(f"  reduced: {INTERNVL2} num_layers {full.num_layers} -> {vcfg.num_layers} at full "
+        f"width ({vcfg.param_count() * 4 / 1e9:.1f} GB in f32; serve phase only)")
+    run = _serve_run(torch, _serve_args("--kv-bits", "8", base=FAMILY_SERVE_ARGV + (
+        "--arch", INTERNVL2) + small, **kw), "(d) internvl2 kv-bits 8, tokens only", counted,
+        phase="4k", config=vcfg)
+    runs["d"] = run
+    _release_served(run, "d", 2.0)
+    return runs
+
+
+def moe_serve_card_vs_cpu(torch) -> None:
+    """(e): llama4-5 at ``--kv-bits mixed`` through ``ServeEngine``, the same
+    weights (made on the CPU) on the card and on the CPU, 8 requests of 96
+    prompt tokens (past the chunk of 64; one ending in a run of one token,
+    which crowds an expert) + 16, 4 slots: the cache draws are keyed by
+    request and position on either device, so the tokens must be equal."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.models.model import build
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import Request
+
+    cfg = _moe_small(torch)
+    base = build(cfg, seed=0, device="cpu")
+    for p in base.parameters():
+        p.requires_grad_(False)
+    rng = np.random.RandomState(11)
+    prompts = [rng.randint(0, cfg.vocab_size, 96 - (r % 3)).tolist() for r in range(8)]
+    prompts[3][48:] = [prompts[3][48]] * (len(prompts[3]) - 48)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = copy.deepcopy(base).to(dev)
+        eng = ServeEngine(cfg, model, policy="mixed", page_size=16, n_slots=4, max_len=112,
+                          seed=0)
+        out[dev] = eng.run([Request(r, list(p), 16) for r, p in enumerate(prompts)])
+        del eng, model
+    if out["cpu"] != out["cuda"]:
+        diff = [r for r in out["cpu"] if out["cpu"][r] != out["cuda"].get(r)]
+        fail(f"phase 4k(e): requests {diff} differ on the card and the CPU")
+    log(f"  phase 4k(e) llama4-5 mixed, card vs cpu: {len(out['cpu'])} requests, "
+        f"{sum(len(v) for v in out['cpu'].values())} tokens, equal")
+
+
+def families_path(torch, batch: int, seq: int, fixed: dict) -> dict:
+    """Phase 4k: (a) internvl2-26b trained at full width cut to
+    VLM_TRAIN_LAYERS layers (``train_cut``: bf16 layers, the 256 stubbed
+    prefix embeds, 3 qgenx ``de`` int8 two_phase steps; step times and peak
+    printed beside 4a's ``fixed``); (b) ``moe_card_vs_cpu``; (c), (d)
+    ``families_serve``; (e) ``moe_serve_card_vs_cpu``.  Returns (a)'s and
+    the serving runs' numbers."""
+    t0 = time.perf_counter()
+    # the bound is what fits on the card (80 GB less 2 GB), not a target:
+    # 59 % of the coordinates are the f32 embeddings (4a's are 6 %)
+    train = train_cut(torch, INTERNVL2, VLM_TRAIN_LAYERS, batch, seq, "4k(a)",
+                      "its int8 payload under 2**31 bytes; train phase only", max_peak=78e9)
+    rows = -(-train["n_live"] // 512)
+    if rows * 512 >= 2**31:
+        fail(f"phase 4k(a): {rows} x 512 payload bytes reach 2**31")
+    log(f"  phase 4k(a) internvl2-26b: step_s {train['step_s']} (4a int8: "
+        f"{fixed['step_s']}), peak {train['peak']} B (4a int8: {fixed['peak_bytes']} B); payload "
+        f"{rows * 512} B; {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    moe = moe_card_vs_cpu(torch, batch, seq)
+    log(f"  phase 4k(b) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serve = families_serve(torch)
+    log(f"  phase 4k(c), (d) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    moe_serve_card_vs_cpu(torch)
+    log(f"  phase 4k(e) took {time.perf_counter() - t0:.1f} s")
+    return {"train": train, "moe": moe, "serve": serve}
+
+
+def families_kernel_rows(torch, fam: dict, errs: dict) -> list:
+    """Phase 4k's kernel rows: kernels 1-3 at (a)'s internvl2-26b buffer
+    ([3,745,044 x 512]; the plain versions in row chunks), and kernels 1 and
+    3 at the cache shapes no row had: 1024 features (8 kv heads x 128, both
+    families), a wave's write [8, 1024], a prefill's [512, 1024] and a
+    wave's read [8 x 576, 1024], with (c)'s and (d)'s counts by bits."""
+    rows = archs_buffer_rows(torch, fam["train"], errs, tag="internvl2",
+                             what="internvl2-26b's buffer (4k(a), 2 layers)", chunked=True)
+    s = fam["serve"]
+    mixed = s["c-mixed"]
+    by_bits = {8: (mixed["writes"][8] + s["c-int8"]["counts"]["quantize_blocks"]
+                   + s["d"]["counts"]["quantize_blocks"],
+                   mixed["reads"][8] + s["c-int8"]["counts"]["dequantize_blocks"]
+                   + s["d"]["counts"]["dequantize_blocks"]),
+               4: (mixed["writes"][4], mixed["reads"][4])}
+    rows += kv_kernel_rows(torch, 1024, {"write": 8, "prefill": 512}, 8 * 576, by_bits, errs,
+                           suffix="-f1024-b8")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 5: kernel times at the main-path shapes
 # ---------------------------------------------------------------------------
 
@@ -2846,10 +3238,24 @@ def leafwise_kernel_rows(torch, shapes: list, layouts: dict, errs: dict) -> list
 DEVICE_MS_ATTEMPTS = 3  # see device_ms
 
 
-def _time_ms(torch, fn, reps: int):
-    """(ms per call, the last call's output)."""
+def _time_ms(torch, fn, reps: int, flush=None):
+    """(ms per call, the last call's output).  With ``flush`` (see
+    :func:`l2_flush`), each call runs after it and is timed alone, between
+    its own pair of events."""
     fn()
     torch.cuda.synchronize()
+    if flush is not None:
+        pairs = []
+        for _ in range(reps):
+            flush()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            pairs.append((start, end))
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in pairs) / reps, out
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -2861,7 +3267,18 @@ def _time_ms(torch, fn, reps: int):
     return start.elapsed_time(end) / reps, out
 
 
-def device_ms(torch, fn, kernel: str, reps: int) -> float:
+def l2_flush(torch):
+    """A call that reads a buffer of twice the card's L2, so that what a
+    kernel timed after it reads comes from HBM: a working set that fits in
+    L2 (a wave's KV-cache rows) would otherwise stay there across
+    back-to-back launches and be timed against an HBM bound it does not
+    pay.  Its reduction kernel is no kernel that :func:`device_ms` counts."""
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 0) or L2_BYTES
+    buf = torch.ones(2 * l2 // 4, device="cuda")
+    return lambda: buf.sum()
+
+
+def device_ms(torch, fn, kernel: str, reps: int, flush=None) -> float:
     """The device time of one launch of ``kernel`` (a substring of the CUDA
     kernel's name): ``reps`` calls of ``fn`` under ``torch.profiler``, the
     kernel's device time summed by ``key_averages()`` over the launches the
@@ -2872,7 +3289,8 @@ def device_ms(torch, fn, kernel: str, reps: int) -> float:
     the ``reps`` calls are the active step of a schedule whose warm-up step
     makes the same calls unrecorded.  A measurement that still records
     fewer than half the launches is taken again, up to
-    ``DEVICE_MS_ATTEMPTS`` times, and then fails."""
+    ``DEVICE_MS_ATTEMPTS`` times, and then fails.  With ``flush`` (see
+    :func:`l2_flush`), each call runs after it."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
@@ -2882,6 +3300,8 @@ def device_ms(torch, fn, kernel: str, reps: int) -> float:
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
             for _ in range(2):  # the warm-up step, then the recorded one
                 for _ in range(reps):
+                    if flush is not None:
+                        flush()
                     fn()
                 torch.cuda.synchronize()
                 prof.step()
@@ -3338,10 +3758,18 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # phase 4k: llama4's MoE and internvl2's prefix embeds on the train and serve paths
+    t0 = phase_start(torch, "4k")
+    families = families_path(torch, args.batch, args.seq, by_run["int8"])
+    log(f"phase 4k took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # phase 5: kernel times at the main-path shapes
     t0 = phase_start(torch, "5")
     rows = (kernel_times(torch, launches, errs, shapes, int_ops, qada) + gan_rows + [toy_row]
-            + serve_rows + arch_rows + leafwise_kernel_rows(torch, shapes, layouts, errs))
+            + serve_rows + arch_rows + leafwise_kernel_rows(torch, shapes, layouts, errs)
+            + families_kernel_rows(torch, families, errs))
     log(f"phase 5 took {time.perf_counter() - t0:.1f} s")
 
     print(card, flush=True)  # again, beside the results (a log's tail keeps it)

@@ -1,4 +1,4 @@
-"""Model / shape configuration (own copy of the dense-decoder subset of
+"""Model / shape configuration (own copy of the dense, MoE and VLM subset of
 ``repro.configs``)."""
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig  # noqa: F401

@@ -9,6 +9,8 @@ ARCHS = {
     "gemma-2b": "gemma_2b",
     "qwen3-4b": "qwen3_4b",
     "gemma3-27b": "gemma3_27b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b",
+    "internvl2-26b": "internvl2_26b",
 }
 
 

@@ -3,7 +3,9 @@
 
 Batch ``t`` is a pure function of (seed, t): a noisy order-2
 autoregressive token stream, so a model can reduce its loss.  Batches are
-numpy ``int32`` arrays; :func:`to_device` moves one to torch.
+numpy ``int32`` arrays; :func:`add_modality_stubs` attaches a VLM's
+stubbed image embeddings (f32), and :func:`to_device` moves a batch to
+torch.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from typing import Iterator
 
 import numpy as np
 import torch
+
+from repro_torch.configs.base import ModelConfig
 
 
 @dataclasses.dataclass
@@ -69,8 +73,22 @@ def make_pipeline(vocab_size: int, batch: int, seq_len: int, seed: int = 0) -> S
                                             seq_len=seq_len + 1, seed=seed))
 
 
+def add_modality_stubs(batch: dict, model_cfg: ModelConfig, seed: int = 0) -> dict:
+    """Attach a VLM's stubbed vision frontend: ``embeds`` [B,
+    num_prefix_embeds, D] f32 from ``np.random.RandomState(seed)`` (the
+    reference's draw, bit for bit); other configs' batches are returned
+    as they are."""
+    if model_cfg.arch_type != "vlm":
+        return batch
+    B = batch["tokens"].shape[0]
+    rng = np.random.RandomState(seed)
+    embeds = rng.randn(B, model_cfg.num_prefix_embeds, model_cfg.d_model).astype(np.float32)
+    return {**batch, "embeds": embeds}
+
+
 def to_device(batch: dict, device, rows: slice = slice(None)) -> dict:
-    """numpy batch -> int64 torch tensors on ``device`` (optionally this
-    worker's row shard)."""
-    return {k: torch.as_tensor(np.ascontiguousarray(v[rows]), dtype=torch.int64,
+    """numpy batch -> torch tensors on ``device``, tokens and labels int64
+    and ``embeds`` f32 (optionally this worker's row shard of each)."""
+    return {k: torch.as_tensor(np.ascontiguousarray(v[rows]),
+                               dtype=torch.float32 if k == "embeds" else torch.int64,
                                device=device) for k, v in batch.items()}

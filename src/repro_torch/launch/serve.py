@@ -14,6 +14,8 @@ step runs over the packed batch::
         --requests 12 --prompt-len 16 --gen 16 --device cpu
     python -m repro_torch.launch.serve --arch gemma3-27b --reduced --kv-bits mixed \\
         --device cpu
+    python -m repro_torch.launch.serve --arch llama4-maverick-400b-a17b --reduced \\
+        --kv-bits mixed --device cpu
     # serve the params of a checkpoint written by either train CLI
     python -m repro_torch.launch.serve --reduced --restore /tmp/ckpt --device cpu
     # hardened: decode guard + quarantine, deadlines, crash-safe snapshots
@@ -30,10 +32,13 @@ step runs over the packed batch::
 How it differs from the reference CLI:
 
 * ``--arch`` offers the ported configs only (tinyllama-1.1b, gemma-2b,
-  qwen3-4b, gemma3-27b) and defaults to tinyllama-1.1b, where the
-  reference defaults to gemma-2b; ``--device`` picks the device (cuda by
-  default; ``cpu`` when asked).  ``--kv-bits mixed`` stores gemma3's
-  local-window layers int4 and its global layers int8.
+  qwen3-4b, gemma3-27b, llama4-maverick-400b-a17b, internvl2-26b) and
+  defaults to tinyllama-1.1b, where the reference defaults to gemma-2b;
+  ``--device`` picks the device (cuda by default; ``cpu`` when asked).
+  ``--kv-bits mixed`` stores gemma3's local-window layers and llama4's
+  chunk-local layers int4 and their global layers int8.  internvl2 is
+  served by its tokens alone (no image prefix), as the reference's
+  ``prefill_paged`` serves it.
 * ``--host-devices`` and ``--compilation-cache-dir`` are XLA-only and
   unknown here.  K > 1 runs as one process per rank under ``torchrun``;
   the logit exchange is built only when the process group has more than

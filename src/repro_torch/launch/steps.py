@@ -128,8 +128,12 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def make_loss_fn(model):
+    """The loss of a batch: cross entropy plus 0.01 x the MoE layers'
+    auxiliary loss (exactly 0 without experts), a VLM's ``embeds`` at the
+    prefix."""
     def loss_fn(batch: dict) -> torch.Tensor:
-        return cross_entropy_loss(model(batch["tokens"]), batch["labels"])
+        logits, aux = model.forward_aux(batch["tokens"], batch.get("embeds"))
+        return cross_entropy_loss(logits, batch["labels"], aux)
 
     return loss_fn
 

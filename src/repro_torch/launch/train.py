@@ -1,7 +1,10 @@
 """End-to-end training entry point of the port (``python -m repro_torch.launch.train``).
 
-Trains a dense decoder (``--arch`` tinyllama-1.1b, gemma-2b, qwen3-4b or
-gemma3-27b) with ExtraAdam (the default, as in the reference
+Trains a decoder (``--arch`` tinyllama-1.1b, gemma-2b, qwen3-4b,
+gemma3-27b, the mixture-of-experts llama4-maverick-400b-a17b or the VLM
+internvl2-26b, whose batches carry the stubbed image embeddings of
+:func:`~repro_torch.data.pipeline.add_modality_stubs`, seeded with
+``--seed``) with ExtraAdam (the default, as in the reference
 CLI), Adam, optimistic Adam or the paper's adaptive Q-GenX optimizer, and
 the gradient exchange (``--compressor`` any name of the registry: qgenx,
 layerwise, none, randk, ef21-topk, ef-randk; ``--rand-frac`` /
@@ -16,6 +19,8 @@ CPU), which sets the rank and world size read here::
         --compression int8
     python -m repro_torch.launch.train --arch qwen3-4b --reduced --device cpu \\
         --optimizer qgenx --compression int8
+    python -m repro_torch.launch.train --arch llama4-maverick-400b-a17b --reduced \\
+        --device cpu --optimizer qgenx --compression int8
     torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --arch tinyllama-1.1b --reduced --compression int4 --compressor layerwise
     python -m repro_torch.launch.train --reduced --optimizer qgenx \\
@@ -98,7 +103,7 @@ from repro_torch.core.exchange import (
 from repro_torch.core.noise import GeneratorNoise
 from repro_torch.core.quantization import QuantConfig
 from repro_torch.core.tree import tree_flatten
-from repro_torch.data.pipeline import make_pipeline, to_device
+from repro_torch.data.pipeline import add_modality_stubs, make_pipeline, to_device
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.model import build
@@ -367,9 +372,14 @@ def run(args, log=print, exchange: Optional[ExchangeConfig] = None,
                 args, model, opt_state, ex_state, device, say)
             out["start_step"] = out["restored"]["step"]
             pipe.restore({"step": out["start_step"], "seed": args.seed})
-        fixed = to_device(next(pipe), device, rows) if args.repeat_batch else None
+        def next_batch():
+            # a VLM's image embeddings: the same seeded draw every step, as
+            # in the reference
+            return to_device(add_modality_stubs(next(pipe), cfg, seed=args.seed), device, rows)
+
+        fixed = next_batch() if args.repeat_batch else None
         for step in range(out["start_step"], args.steps):
-            batch = fixed if fixed is not None else to_device(next(pipe), device, rows)
+            batch = fixed if fixed is not None else next_batch()
             noise = step_noise(args.seed, rank, step, device)
             t0 = time.perf_counter()
             # the fault schedule is keyed on the loop's step, not the optimizer's

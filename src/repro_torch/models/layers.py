@@ -1,14 +1,16 @@
-"""Building blocks of the dense decoder (port of the dense parts of
+"""Building blocks of the decoder (port of the dense parts of
 ``repro/models/layers.py``): RMS/layer norm, the per-head qk-norm, rotary
 embeddings, the SwiGLU/GeGLU/GELU MLP and causal GQA / MQA attention,
-full or banded to a sliding window, in plain torch ops.
+full, banded to a sliding window or chunk-local (llama4), in plain torch
+ops.
 
 Each block takes its parameters as a dict of tensors (the reference's
 layout: q/k/v weights ``[D, H, hd]``, output ``[H, hd, D]``, qk-norm
 scales ``[hd]``), computes norms, rope and softmax in f32 and returns the
 activation dtype.  qk-norm, where the config has it, is applied to q and
 k before rope on every path.  A layer's :class:`AttnMode` says whether it
-attends to the whole causal history or to its last ``window`` positions.
+attends to the whole causal history, to its last ``window`` positions or,
+in train and prefill, to the earlier positions of its own ``chunk``.
 """
 
 from __future__ import annotations
@@ -132,13 +134,41 @@ def banded_attention(q, k, v, window: int):
     return out.reshape(B, Sp, H, hd)[:, :S]
 
 
+def chunk_local_attention(q, k, v, chunk: int):
+    """llama4-style chunk-local causal attention: the sequence cut into
+    chunks of ``min(chunk, S)`` (the tail padded), each query attending
+    causally inside its own chunk, with no look back.  q/k/v [B, S, H, hd]."""
+    B, S, H, hd = q.shape
+    C = min(chunk, S)
+    pad = (-S) % C
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+    Sp = S + pad
+    nc = Sp // C
+    qc, kc, vc = (t.reshape(B, nc, C, H, hd) for t in (q, k, v))
+    mask = _causal_mask(C, C, q.device)
+    logits = torch.einsum("bcqhd,bckhd->bchqk", qc.float(), kc.float()) * (hd**-0.5)
+    logits = torch.where(mask[None, None, None], logits,
+                         torch.full((), -1e30, device=logits.device))
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bchqk,bckhd->bcqhd", w.to(vc.dtype), vc)
+    return out.reshape(B, Sp, H, hd)[:, :S]
+
+
 @dataclasses.dataclass(frozen=True)
 class AttnMode:
-    """Static attention behaviour of one layer (the reference's ``chunk``
-    mode comes with llama4)."""
+    """Static attention behaviour of one layer.  The decode paths treat a
+    chunk layer as a sliding window of ``chunk`` keys, as the reference
+    does (so prefill and decode differ past position ``chunk``)."""
 
     causal: bool = True
     window: int = 0  # >0: banded sliding window
+    chunk: int = 0  # >0: chunk-local (llama4)
+
+    @property
+    def decode_window(self) -> int:
+        """The keys a decode step attends to (0: the whole history)."""
+        return self.window or self.chunk
 
 
 def _qk_norm(p, cfg: ModelConfig, q, k):
@@ -150,8 +180,8 @@ def _qk_norm(p, cfg: ModelConfig, q, k):
 
 def attention_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
                     mode: AttnMode) -> torch.Tensor:
-    """Full-sequence self-attention (train/prefill), causal or banded to
-    ``mode.window``. x: [B, S, D]."""
+    """Full-sequence self-attention (train/prefill), causal, banded to
+    ``mode.window`` or chunk-local to ``mode.chunk``. x: [B, S, D]."""
     H, hd = cfg.num_heads, cfg.resolved_head_dim
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
@@ -163,6 +193,8 @@ def attention_apply(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tenso
     k, v = _repeat_kv(k, H), _repeat_kv(v, H)
     if mode.window:
         out = banded_attention(q, k, v, mode.window)
+    elif mode.chunk:
+        out = chunk_local_attention(q, k, v, mode.chunk)
     else:
         out = full_attention(q, k, v, mode.causal)
     return torch.einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
@@ -210,7 +242,7 @@ def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, pos: int,
     """One-token decode against a dense cache: x [B, 1, D], ``pos`` the
     shared position; writes this token's K/V at ``pos`` of k_cache /
     v_cache [B, S, KV, hd] (in place) and attends over positions <= pos
-    (a window layer over the last ``W`` cache entries only, from
+    (a window or chunk layer over the last ``W`` cache entries only, from
     ``clip(pos - W + 1, 0, S - W)``).  Returns [B, 1, D]."""
     hd, S = cfg.resolved_head_dim, k_cache.shape[1]
     cos, sin = rope_cos_sin(torch.tensor([pos], device=x.device), hd, cfg.rope_theta)
@@ -218,8 +250,8 @@ def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, pos: int,
     k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
     v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
     start, n = 0, S
-    if mode.window:
-        n = min(mode.window, S)
+    if mode.decode_window:
+        n = min(mode.decode_window, S)
         start = min(max(pos - n + 1, 0), S - n)
     key_pos = start + torch.arange(n, device=x.device)
     valid = (key_pos <= pos)[None].expand(x.shape[0], n)
@@ -239,7 +271,7 @@ def attention_decode_paged(p, cfg: ModelConfig, pc, cache: dict, l: int, x: torc
     key, so the attention never sees its own quantization noise; its K/V
     are written after the read.  Slots whose row is all -1 are inert:
     their writes drop and the extra key keeps their softmax finite.  A
-    window layer masks ``key_pos > pos - W`` rather than slicing.
+    window or chunk layer masks ``key_pos > pos - W`` rather than slicing.
     Returns [B, 1, D]; ``cache`` is updated in place."""
     from repro_torch.serve import kv_cache as KVC  # lazy: serve imports configs only
 
@@ -250,8 +282,8 @@ def attention_decode_paged(p, cfg: ModelConfig, pc, cache: dict, l: int, x: torc
     key_pos = torch.arange(T, device=x.device)[None, :]
     mapped = torch.repeat_interleave(page_table >= 0, pc.page_size, dim=1)
     valid = (key_pos < pos[:, None]) & mapped
-    if mode.window:
-        valid = valid & (key_pos > pos[:, None] - mode.window)
+    if mode.decode_window:
+        valid = valid & (key_pos > pos[:, None] - mode.decode_window)
     k_all = torch.cat([k_hist, k_new.float()], dim=1)
     v_all = torch.cat([v_hist, v_new.float()], dim=1)
     valid = torch.cat([valid, torch.ones_like(valid[:, :1])], dim=1)

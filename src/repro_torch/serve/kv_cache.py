@@ -41,8 +41,9 @@ ranges under one :class:`~repro_torch.core.quantization.QuantConfig`
 (``quant=None`` = fp32 storage).  ``mixed`` stores local-window layers
 int4 and global-attention layers int8, as :func:`layer_bit_policy` reads
 them off the model's layer pattern: gemma3-27b's 5:1 local:global layers
-take both widths, and a config with no local-window layers (tinyllama,
-gemma-2b, qwen3-4b) is all-int8, as in the reference.
+and llama4's 3:1 chunk-local:global layers take both widths, and a config
+with no local layers (tinyllama, gemma-2b, qwen3-4b, internvl2) is
+all-int8, as in the reference.
 
 Storage per segment ``j`` (one tensor per name, ``P = num_pages``):
 

@@ -114,6 +114,15 @@ def _load_out(workdir, i, k):
         return dict(z)
 
 
+def _one_thread(target, *args):
+    """A spawned worker: ``target(*args)`` on one torch thread (small
+    tensors; the suite's pytest workers share the cores)."""
+    import torch
+
+    torch.set_num_threads(1)
+    target(*args)
+
+
 def run_group(K, workdir, inputs, cases, backend="gloo", device="cpu", while_running=None,
               target=run):
     """Run K workers of ``target`` over ``inputs`` (for :func:`run`, keys
@@ -127,9 +136,9 @@ def run_group(K, workdir, inputs, cases, backend="gloo", device="cpu", while_run
     workdir.mkdir(parents=True, exist_ok=True)
     np.savez(workdir / "inputs.npz", **inputs)
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=target, args=(r, K, str(workdir / "store"),
-                                           str(workdir / "inputs.npz"), str(workdir),
-                                           cases, backend, device))
+    procs = [ctx.Process(target=_one_thread, args=(target, r, K, str(workdir / "store"),
+                                                str(workdir / "inputs.npz"), str(workdir),
+                                                cases, backend, device))
              for r in range(K)]
     for p in procs:
         p.start()
@@ -150,10 +159,12 @@ def run_group(K, workdir, inputs, cases, backend="gloo", device="cpu", while_run
 
 def run_step(rank, world, store_path, in_path, out_dir, cases, backend, device):
     """Each case ``(name, method, bits, mode, sync_every, recenter_every,
-    steps, level_update_every[, fault spec])`` of ``_torch_step_k2_reference.CASES``
+    steps, level_update_every[, fault spec[, arch]])`` of ``_torch_step_k2_reference.CASES``
     (a ``FAULT_CASES`` case with its spec appended: the step is then
-    guarded and takes the step index as ``fault_step``): the port's train step on
-    reduced tinyllama-1.1b from the reference's initial params
+    guarded and takes the step index as ``fault_step``; an ``ARCH_CASES``
+    case with ``None`` and its model appended, the batch's ``embeds_{t}``
+    sliced by rows as its tokens are): the port's train step on
+    reduced tinyllama-1.1b (or ``arch``) from the reference's initial params
     (``p0_{j}``), on this worker's rows of each step's batch, with this
     worker's noise draws replayed (``noise_{rank}_{i}``).  Saves
     ``out_{case}_{rank}.npz``: the per-step metrics, the final params
@@ -166,6 +177,7 @@ def run_step(rank, world, store_path, in_path, out_dir, cases, backend, device):
     levels."""
     import torch
 
+    import _torch_step_k2_reference as ref_k2  # its configs (it imports jax only in main)
     from repro_torch.configs import get_config
     from repro_torch.convert import opt_state_to_jax, params_from_jax
     from repro_torch.core import exchange as xmod
@@ -185,10 +197,11 @@ def run_step(rank, world, store_path, in_path, out_dir, cases, backend, device):
     try:
         for i, case in enumerate(cases):
             name, method, bits, mode, sync_every, recenter_every, steps, every = case[:8]
-            spec = FaultSpec.parse(case[8]) if len(case) > 8 else None
+            spec = FaultSpec.parse(case[8]) if len(case) > 8 and case[8] else None
+            arch = case[9] if len(case) > 9 else "tinyllama-1.1b"
             n_leaves = sum(1 for k in data.files if k.startswith("p0_"))
             model = params_from_jax([data[f"p0_{j}"] for j in range(n_leaves)],
-                                    build(get_config("tinyllama-1.1b").reduced(), device=dev))
+                                    build(ref_k2.arch_config(arch, get_config), device=dev))
             quant = QuantConfig(num_levels=15 if bits == 8 else 5, bits=bits, bucket_size=256)
             ex = xmod.make_exchange(
                 xmod.ExchangeConfig(compressor="qgenx", quant=quant, mode=mode,
@@ -210,8 +223,10 @@ def run_step(rank, world, store_path, in_path, out_dir, cases, backend, device):
             levels = {}
             trace = None
             for t in range(steps):
-                batch = to_device({"tokens": data[f"tokens_{t}"],
-                                   "labels": data[f"labels_{t}"]}, dev, rows)
+                batch = {"tokens": data[f"tokens_{t}"], "labels": data[f"labels_{t}"]}
+                if f"embeds_{t}" in data.files:
+                    batch["embeds"] = data[f"embeds_{t}"]
+                batch = to_device(batch, dev, rows)
                 recording = trace is None
                 if recording:
                     xmod.wire_trace_start()
@@ -346,8 +361,10 @@ def run_sparse_step(rank, world, store_path, in_path, out_dir, cases, backend, d
             rows = slice(rank * 2, rank * 2 + 2)
             loss, wire, trace = [], [], None
             for t in range(steps):
-                batch = to_device({"tokens": data[f"tokens_{t}"],
-                                   "labels": data[f"labels_{t}"]}, dev, rows)
+                batch = {"tokens": data[f"tokens_{t}"], "labels": data[f"labels_{t}"]}
+                if f"embeds_{t}" in data.files:
+                    batch["embeds"] = data[f"embeds_{t}"]
+                batch = to_device(batch, dev, rows)
                 if t == 0:
                     xmod.wire_trace_start()
                 opt_state, ex_state, m = step(opt_state, ex_state, batch, noise)
@@ -406,7 +423,6 @@ def run_masked(rank, world, store_path, in_path, out_dir, cases, backend, device
     from repro_torch.core import exchange as xmod
     from repro_torch.core.noise import ReplayNoise
 
-    torch.set_num_threads(1)  # small tensors; the suite's workers share the cores
     dev = torch.device(device)
     data = np.load(in_path)
     dist.init_process_group(backend, store=dist.FileStore(store_path, world),
@@ -449,7 +465,6 @@ def run_layouts(rank, world, store_path, in_path, out_dir, cases, backend, devic
     from repro_torch.core import exchange as xmod
     from repro_torch.core.noise import ReplayNoise
 
-    torch.set_num_threads(1)  # small tensors; the suite's workers share the cores
     dev = torch.device(device)
     data = np.load(in_path)
     n_leaves = len(lay.tree_paths())
@@ -502,7 +517,6 @@ def run_layout_step(rank, world, store_path, in_path, out_dir, cases, backend, d
     from repro_torch.optim import optimizers as opt
     from repro_torch.optim.optimizers import OptimizerConfig
 
-    torch.set_num_threads(1)  # small tensors; the suite's workers share the cores
     dev = torch.device(device)
     data = np.load(in_path)
     dist.init_process_group(backend, store=dist.FileStore(store_path, world),

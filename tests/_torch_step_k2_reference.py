@@ -35,6 +35,16 @@ A case of :data:`FAULT_CASES` builds the step with ``guard=True`` and its
 fault schedule and passes each step's index as ``fault_step``; every case
 also writes the metrics ``rejected``, ``nonfinite`` and ``alive``.
 
+A case of :data:`ARCH_CASES` (:func:`main_arch`) runs case (a)'s step
+once on another model (:func:`arch_config`) from the caller's inputs
+(``INPUTS.npz``: ``p0_{j}``, ``tokens_0``, ``labels_0``, ``embeds_0``),
+so that the caller can run the port's workers beside it:
+
+    XLA_FLAGS=--xla_force_host_platform_device_count=2 JAX_PLATFORMS=cpu \\
+        PYTHONPATH=src python tests/_torch_step_k2_reference.py m OUT.npz jnp INPUTS.npz
+
+It writes the metrics, the final params and the wire list as above.
+
 The reference runs with ``use_pallas=True``, the path the port's kernels
 follow (interpret-mode Pallas; the 2-device rendezvous does not stall at
 this size), or with a third argument ``jnp`` on its jnp path
@@ -60,13 +70,36 @@ CASES = {
 FAULT_CASES = {
     "g": (("qgenx", "de", 8, "two_phase", 1, 0, 3, 0), "nan_grad@1:worker=0;drop@2:worker=1"),
 }
+# the families' case: case (a)'s step, once, on llama4-5 with internvl2's 8
+# stubbed prefix embeds (each worker routes its own rows with its own
+# capacity, and takes its own rows of the embeds)
+ARCH_CASES = {"m": "llama4-5-vlm"}
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
 METRICS = ("loss", "wire_bytes", "param_drift", "coded_bits_est", "rejected", "nonfinite",
            "alive")
 
 
 def case_fields(case):
-    """The fields of a case of :data:`CASES` or :data:`FAULT_CASES`."""
+    """The fields of a case of :data:`CASES`, :data:`FAULT_CASES` or
+    :data:`ARCH_CASES`."""
+    if case in ARCH_CASES:
+        return CASES["a"][:6] + (1, 0)
     return CASES[case] if case in CASES else FAULT_CASES[case][0]
+
+
+def arch_config(arch, get_config):
+    """The test model ``arch`` of either package (``get_config`` its
+    registry's): reduced tinyllama-1.1b, or ``llama4-5-vlm``: llama4's
+    reduced() at 5 layers (one period of chunk / MoE-chunk / chunk /
+    MoE-global and a chunk tail layer) with internvl2's 8 prefix embeds
+    (``arch_type="vlm"``, so the stubs attach)."""
+    import dataclasses
+
+    if arch == "llama4-5-vlm":
+        return dataclasses.replace(get_config("llama4-maverick-400b-a17b").reduced(),
+                                   num_layers=5, arch_type="vlm", num_prefix_embeds=8)
+    return get_config("tinyllama-1.1b").reduced()
 
 
 def exchange_keys(case, count, key):
@@ -185,5 +218,57 @@ def main(case: str, out_path: str, path: str = "pallas") -> None:
     np.savez(out_path, **out)
 
 
+def main_arch(case: str, out_path: str, path: str, inputs_path: str) -> None:
+    """An :data:`ARCH_CASES` step from the caller's params and batch."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from jax.sharding import Mesh
+
+    import repro.launch.steps as steps
+    from repro.configs.registry import get_config
+    from repro.core.exchange import ExchangeConfig, make_exchange, wire_trace_start, \
+        wire_trace_stop
+    from repro.core.quantization import QuantConfig
+    from repro.models.model import build
+    from repro.optim import optimizers as opt
+
+    assert jax.device_count() == 2, "run with --xla_force_host_platform_device_count=2"
+    steps.shard_map = shard_map_shim
+    name, method, bits, mode = case_fields(case)[:4]
+    model = build(arch_config(ARCH_CASES[case], get_config))
+    data = np.load(inputs_path)
+    treedef = jax.tree_util.tree_structure(jax.eval_shape(model.init, jax.random.PRNGKey(0)))
+    params = jax.tree_util.tree_unflatten(
+        treedef, [jnp.asarray(data[f"p0_{j}"]) for j in range(treedef.num_leaves)])
+    quant = QuantConfig(num_levels=15 if bits == 8 else 5, bits=bits, bucket_size=BUCKET)
+    ex = make_exchange(ExchangeConfig(compressor="qgenx", quant=quant, mode=mode,
+                                      use_pallas=path == "pallas"))
+    opt_cfg = opt.OptimizerConfig(name=name, gamma_scale=GAMMA, method=method)
+    batch = {k: jnp.asarray(data[f"{k}_0"]) for k in ("tokens", "labels", "embeds")
+             if f"{k}_0" in data.files}
+    args = (params, opt.init_state(opt_cfg, params), ex.init_state(), batch,
+            jax.random.fold_in(jax.random.PRNGKey(7), 0))
+    mesh = Mesh(np.array(jax.devices()), ("data",))
+    with mesh:
+        wire_trace_start()  # the recorder fires as the step is traced
+        step = jax.jit(steps.make_train_step(model, opt_cfg, exchange=ex, mesh=mesh)).lower(
+            *args).compile(compiler_options=FAST_COMPILE)
+        trace = wire_trace_stop()
+        params, opt_state, ex_state, m = step(*args)
+    out = {k: np.asarray([float(m[k])], np.float64) for k in METRICS}
+    out["calls"] = np.asarray([int(ex_state.step)])
+    out["opt_count"] = np.asarray(opt_state.count)
+    out["opt_sum_sq"] = np.asarray(opt_state.sum_sq)
+    for j, l in enumerate(jax.tree_util.tree_leaves(params)):
+        out[f"p_{j}"] = np.asarray(l)
+    out["wire_names"] = np.asarray([nm for nm, _ in trace])
+    out["wire_nbytes"] = np.asarray([nb for _, nb in trace], np.int64)
+    np.savez(out_path, **out)
+
+
 if __name__ == "__main__":
-    main(*sys.argv[1:])
+    if sys.argv[1] in ARCH_CASES:
+        main_arch(*sys.argv[1:])
+    else:
+        main(*sys.argv[1:])

@@ -23,8 +23,9 @@ from repro_torch.kernels import cuda
 from repro_torch.launch import train
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.model import build
-from repro_torch.models.transformer import DenseDecoder
+from repro_torch.models.transformer import Decoder
 from repro_torch.optim.optimizers import OptimizerConfig
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 Q8 = QuantConfig(num_levels=15, bits=8, bucket_size=512)
 
@@ -39,7 +40,7 @@ def test_cuda_without_a_gpu_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("make", [
-    lambda: DenseDecoder(get_config("tinyllama-1.1b").reduced()),
+    lambda: Decoder(get_config("tinyllama-1.1b").reduced()),
     lambda: make_exchange(ExchangeConfig(quant=Q8)).init_state(),
     lambda: uniform_levels(15),
     lambda: exponential_levels(5),
@@ -235,13 +236,20 @@ def test_qada_cli_prints_and_returns_levels(capsys):
     assert "[train] qada levels=" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("field", [dict(chunked_window=True), dict(num_experts=4)])
+@pytest.mark.parametrize("field", [dict(kv_lora_rank=32), dict(ssm_state=16)])
 def test_unported_model_fields_are_rejected(field):
-    # llama4's chunk-local window and the MoE fields come with ROADMAP A6:
-    # until then they are unknown keywords
+    # deepseek's MLA and the SSM fields come with ROADMAP A6: until then
+    # they are unknown keywords
     with pytest.raises(TypeError):
         ModelConfig(name="x", arch_type="dense", num_layers=2, d_model=64, vocab_size=32,
                     **field)
+
+
+@pytest.mark.parametrize("arch_type", ["ssm", "hybrid", "audio"])
+def test_unported_arch_types_are_rejected(arch_type):
+    # dense, moe and vlm are ported; the SSM, hybrid and audio families are not
+    with pytest.raises(NotImplementedError, match=arch_type):
+        ModelConfig(name="x", arch_type=arch_type, num_layers=2, d_model=64, vocab_size=32)
 
 
 @pytest.mark.parametrize("argv", [["--host-devices", "2"], ["--compilation-cache-dir", "x"],

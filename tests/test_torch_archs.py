@@ -123,6 +123,7 @@ from repro_torch.serve import kv_cache as K
 
 from test_torch_serve_model import _unpack, _xi
 from test_torch_step import _replayed_noise, _shard_map_shim
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FULL = ("tinyllama-1.1b", "gemma-2b", "qwen3-4b", "gemma3-27b")
 SMALL = ("gemma-2b", "qwen3-4b", "gemma3-27b", "gemma3-27b-7")
@@ -133,14 +134,6 @@ KEY = jax.random.PRNGKey(42)
 Q8 = dict(num_levels=15, bits=8, bucket_size=BUCKET)
 SLOTS, PROMPT, WAVES, PAGE, NBLK = 3, 12, 8, 4, 5
 RTOL, FLIP_SHARE = 1e-5, 1e-4
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 #: XLA options of the reference's compiles: these tests compile small

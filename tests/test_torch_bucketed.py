@@ -53,18 +53,9 @@ from repro_torch.launch.steps import make_train_step
 from repro_torch.models.model import build
 from repro_torch.optim import optimizers as port_opt
 from repro_torch.optim.optimizers import OptimizerConfig
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SHAPES = [s for _, s in lay.tree_paths()]
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Small tensors: one intra-op thread keeps the port's ops from waiting
-    on a pool that the suite's parallel workers oversubscribe."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # -- 1. partition -----------------------------------------------------------

@@ -49,6 +49,7 @@ from repro_torch.launch.steps import make_train_step
 from repro_torch.models.model import build
 from repro_torch.optim import optimizers as port_opt
 from repro_torch.optim.optimizers import OptimizerConfig
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 OPTS = [("qgenx", "de"), ("qgenx", "optda"), ("extra_adam", "de")]
 Q8 = dict(num_levels=15, bits=8, bucket_size=512)

@@ -25,6 +25,7 @@ from repro_torch.launch import train
 
 from test_torch_checkpoint import Q8, _assert_trees_equal
 from test_torch_checkpoint_resume import _cli
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # ---------------------------------------------------------------------------
 # QAda state: a [512] histogram mid-period and refreshed tables

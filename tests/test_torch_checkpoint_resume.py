@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 from repro_torch.launch import train
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _cli(tmp_path, *extra, steps=4, optimizer="qgenx"):

@@ -32,6 +32,7 @@ from repro_torch.core import coding
 from repro_torch.core import exchange as xmod
 from repro_torch.core.exchange import ExchangeConfig, make_exchange
 from repro_torch.core.quantization import QuantConfig, exponential_levels, uniform_levels
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _pmfs(seed):

@@ -33,6 +33,7 @@ import pytest
 
 import _torch_exchange_worker
 import _torch_sparse_step_k2_reference as ref_sparse
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 HERE = Path(__file__).resolve().parent
 REF_TIMEOUT_S = 300

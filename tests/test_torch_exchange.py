@@ -41,6 +41,7 @@ from repro_torch.core.noise import ReplayNoise
 from repro_torch.core.quantization import QuantConfig, uniform_levels
 
 import _torch_exchange_worker
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 N, BUCKET = 5000, 256
 CASES = [  # (mode, bits, q_norm, bucket): both modes, both widths, both norms

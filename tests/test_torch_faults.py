@@ -26,6 +26,7 @@ from repro.core import retry as jretry
 from repro_torch.checkpoint import checkpointing as ckpt
 from repro_torch.core import faults as tf
 from repro_torch.core import retry as tretry
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SPECS = [
     "",
@@ -39,16 +40,6 @@ SPECS = [
 
 BAD_SPECS = ["nan_grad", "meteor_strike@5", "nan_grad@x", "drop@9-5", "drop@1:rank=2",
              "drop@1:worker=x", "nan_grad@1-y", "nan_logits@3:slot=", " @4"]
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """The port's ops here are small: one intra-op thread each keeps them
-    from waiting on a pool that the suite's parallel workers oversubscribe."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _events(spec):

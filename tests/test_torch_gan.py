@@ -51,6 +51,7 @@ from repro_torch.gan import wgan
 from repro_torch.kernels import cuda
 from repro_torch.launch import train_gan
 from repro_torch.optim import optimizers as opt
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 K, B, LATENT = 3, 256, 8
 JAX_ARMS = {

@@ -68,19 +68,10 @@ from repro_torch.launch.steps import make_train_step
 from repro_torch.models.model import build
 from repro_torch.optim import optimizers as port_opt
 from repro_torch.optim.optimizers import OptimizerConfig
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 BATCH, SEQ, GAMMA, BUCKET, FRAC = 4, 16, 0.02, 512, 0.25
 LR = OptimizerConfig().lr
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """The port's ops here are small: one intra-op thread each keeps them
-    from waiting on a pool that the suite's parallel workers oversubscribe."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _shard_map_shim(f, *, mesh, in_specs, out_specs, check_rep=False, auto=frozenset()):

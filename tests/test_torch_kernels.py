@@ -36,6 +36,7 @@ from repro_torch.kernels.dequant_reduce import (
 )
 from repro_torch.kernels.dequantize import dequantize_blocks
 from repro_torch.kernels.quantize import quantize_blocks
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 NB, BUCKET = 11, 256  # 11 rows: not a multiple of the reference's 8-row tile
 RTOL = ATOL = 1e-6

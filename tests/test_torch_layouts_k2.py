@@ -28,23 +28,13 @@ import sys
 from pathlib import Path
 
 import numpy as np
-import pytest
 
 import _torch_exchange_worker as worker
 import _torch_layouts as lay
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 HERE = Path(__file__).resolve().parent
 REF_TIMEOUT_S = 300
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    import torch
-
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _start_reference(out: Path, cases) -> subprocess.Popen:

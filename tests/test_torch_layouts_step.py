@@ -42,7 +42,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 from jax.sharding import Mesh
 
 import _torch_layouts as lay
@@ -62,6 +61,7 @@ from repro_torch.configs import get_config
 from repro_torch.convert import params_to_jax
 from repro_torch.models.model import build
 from test_torch_step import _batches, _port_model, _shard_map_shim
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 GAMMA, RECENTER_TAG = 0.02, 0x5EED
 # XLA options of the reference's compiles (as tests/test_torch_archs.py's):
@@ -91,14 +91,6 @@ def reference():
         yield jax_build(jax_get_config("tinyllama-1.1b").reduced()), params
     finally:
         jax_steps.shard_map = old
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _config(case):

@@ -51,16 +51,9 @@ from repro_torch.core.quantization import QuantConfig, uniform_levels
 from repro_torch.core.tree import tree_map
 from repro_torch.gan import wgan
 from repro_torch.kernels.quantize import quantize_blocks
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SHAPES = [s for _, s in lay.tree_paths()]
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _inputs(K, seed):

@@ -47,19 +47,10 @@ from repro.core.quantization import QuantConfig as JaxQuant
 from repro_torch.core import exchange as tx
 from repro_torch.core.noise import ReplayNoise
 from test_torch_step_k2 import _assert_params_close, _references
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CASES = [("qgenx", "two_phase", 8, True), ("layerwise", "two_phase", 4, False),
          ("none", "two_phase", 0, False), ("randk", "two_phase", 0, False)]
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """The port's ops here are small: one intra-op thread each keeps them
-    from waiting on a pool that the suite's parallel workers oversubscribe."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jcfg(compressor, mode, bits, qada):

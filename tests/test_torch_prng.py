@@ -63,6 +63,7 @@ from repro_torch.models.model import build
 from repro_torch.optim import optimizers as opt
 
 import _torch_exchange_worker
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # Random123's kat_vectors, "philox4x32 10": counter, key -> output
 KAT = [

@@ -48,6 +48,7 @@ from repro_torch.core.exchange import (
 )
 from repro_torch.core.noise import ReplayNoise
 from repro_torch.kernels import ref
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 BINS = 512
 

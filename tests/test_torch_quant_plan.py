@@ -21,6 +21,7 @@ from repro.core import quantization as jq
 from repro_torch.core import exchange as tex
 from repro_torch.core import quantization as tq
 from repro_torch.core.tree import tree_flatten, tree_unflatten
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("kwargs", [

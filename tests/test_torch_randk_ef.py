@@ -42,6 +42,7 @@ from repro.core import exchange as jx
 from repro_torch.core import exchange as tx
 from repro_torch.core import noise as noise_mod
 from repro_torch.core.noise import GeneratorNoise, ReplayNoise
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SPARSE = ("randk", "ef21-topk", "ef-randk")
 DRAWS = ("randk", "ef-randk")  # the compressors that draw a support

@@ -9,6 +9,7 @@ coordinate can swap).
 import pytest
 
 from test_torch_ef_step_k2 import check_case, outputs
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CASES = ("randk-de", "randk-optda")
 

@@ -38,6 +38,7 @@ from repro_torch.core.quantization import QuantConfig
 from repro_torch.kernels import cuda
 from repro_torch.kernels.ref import quantize_dequantize_segments_plain
 from repro_torch.kernels.segment_quantize import quantize_dequantize_segments
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 NB, BUCKET = 37, 128
 TABLES = [np.asarray(jax_levels(15)), np.asarray(jax_levels(5)),

@@ -29,17 +29,10 @@ from repro_torch import convert
 from repro_torch.configs import get_config
 from repro_torch.core.noise import ReplayNoise
 from repro_torch.serve import kv_cache as K
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 POLICIES = ("fp32", "int8", "int4", "mixed")
 PAGE, PAGES, BPS = 4, 8, 4
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _configs(policy):

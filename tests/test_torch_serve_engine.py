@@ -56,17 +56,10 @@ from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.scheduler import Request
 
 from _torch_serve_common import JaxCacheNoise, jax_exchange_noise, port_model, reference_params
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 GAP_TOL = 1e-4
 BASE = dict(page_size=4, n_slots=3, max_len=32, seed=0)
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

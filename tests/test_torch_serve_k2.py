@@ -20,6 +20,7 @@ import numpy as np
 
 import _torch_exchange_worker
 import _torch_serve_worker
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SPECS = ("", "page_corrupt@3:slot=0")
 

@@ -34,18 +34,11 @@ from repro_torch.models import transformer as T
 from repro_torch.serve import kv_cache as K
 
 from _torch_serve_common import port_model, reference_params
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 B, S, WAVES, PAGE = 3, 8, 4, 4
 RTOL, ATOL = 1e-5, 1e-6
 FLIP_SHARE = 1e-4
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

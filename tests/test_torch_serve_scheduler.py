@@ -24,6 +24,7 @@ import repro_torch.core.retry as port_retry
 import repro_torch.serve.kv_cache as port_kvc
 import repro_torch.serve.scheduler as port_sched
 from _hypothesis_compat import given, settings, st
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MODULES = {"reference": (jax_sched, jax_kvc, jax_retry),
            "port": (port_sched, port_kvc, port_retry)}

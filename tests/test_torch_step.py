@@ -66,6 +66,7 @@ from repro_torch.launch.steps import make_train_step
 from repro_torch.models.model import build
 from repro_torch.optim import optimizers as port_opt
 from repro_torch.optim.optimizers import OptimizerConfig
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 BATCH, SEQ, GAMMA = 4, 16, 0.02
 

@@ -9,6 +9,7 @@ import pytest
 
 import _torch_step_k2_reference as ref_k2
 from test_torch_step_k2 import CASES_HERE, check_case
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("case", [c for c in sorted(ref_k2.CASES) if c not in CASES_HERE])

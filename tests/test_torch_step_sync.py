@@ -45,6 +45,7 @@ from test_torch_step import (  # noqa: F401  (reference: the fixture)
     _port_model,
     reference,
 )
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("name", ["qgenx", "extra_adam"])

@@ -52,6 +52,7 @@ from repro_torch.core import vi
 from repro_torch.core.exchange import ExchangeConfig
 from repro_torch.core.noise import GeneratorNoise, ReplayNoise
 from repro_torch.core.quantization import QuantConfig
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 K = 4
 

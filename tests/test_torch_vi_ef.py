@@ -28,6 +28,7 @@ from repro_torch.core import extragradient as eg
 from repro_torch.core import vi
 from repro_torch.core.exchange import ExchangeConfig
 from repro_torch.core.noise import ReplayNoise
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 K, STEPS, FRAC = 4, 8, 0.25
 

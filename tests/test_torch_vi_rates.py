@@ -43,6 +43,7 @@ from repro_torch.core.vi import (
 )
 from repro_torch.optim import optimizers as opt
 from repro_torch.optim import qgenx as qgenx_opt
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SEED = 42
 
